@@ -1,0 +1,208 @@
+"""Decoder-only LM of the port, for pure full-attention stacks
+(`block_pattern == ("full",)`: dsr1d-qwen-1.5b and gpt2-xl); port of the
+serving entry points of the reference's `repro/models/transformer.py`:
+
+    prefill(params, batch, cache_len)          — prompt forward + dense KV
+    init_paged_cache(...)                      — per-layer page pools
+    write_prefill_to_pages(cfg, paged, dense, slot, page_ids)
+    decode_step_paged(params, cache, tokens)   — one token per slot
+
+Parameters keep the reference's tree (`repro_torch.params`): the blocks of
+the single pattern slot are stacked along a leading layer axis, and the
+unstacked `tail` is empty for these configs. Prefill attention runs the
+hand-written flash kernel where the reference runs jnp `blocked_attention`;
+paged decode runs the paged GQA kernel. Both dispatch on the tensors'
+device: the CUDA kernel on the card, the plain PyTorch version on the CPU.
+
+Unlike the reference's immutable arrays, the paged cache is updated in
+place: `write_prefill_to_pages` and `decode_step_paged` write into the page
+pools and the position / table / liveness tensors they are given.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.device import require_device
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_gqa_decode import paged_gqa_decode
+from repro_torch.models.attention import project_qkv
+from repro_torch.models.common import (apply_norm, apply_rope, embed_tokens,
+                                       lm_logits)
+from repro_torch.models.ffn import apply_ffn
+
+# Page 0 is the null page: retired/inactive slots point their whole table at
+# it, so their masked lanes write and read harmless garbage.
+PAGED_NULL_PAGE = 0
+
+
+def require_full_attention(cfg) -> None:
+    if tuple(cfg.block_pattern) != ("full",) or cfg.moe is not None \
+            or cfg.frontend is not None or cfg.is_encdec:
+        raise NotImplementedError(
+            f"the port runs dense full-attention decoders only; {cfg.name} "
+            f"has pattern {cfg.block_pattern}")
+
+
+def layer(blocks: dict, i: int) -> dict:
+    """The parameters of layer `i` of a stacked block tree (views)."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+def _ffn_residual(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return x + apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
+
+
+def _block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
+    """One block over the whole prompt; returns (x_out, (k, v)) with k, v
+    (B, S, K, h) post-RoPE."""
+    B, S, _ = x.shape
+    y = apply_norm(cfg, p["norm1"], x)
+    q, k, v = project_qkv(cfg, p["attn"], y, y)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v).reshape(B, S, cfg.q_dim)
+    x = x + o @ p["attn"]["wo"].to(x.dtype)
+    return _ffn_residual(cfg, p, x), (k, v)
+
+
+def _block_decode_paged(cfg, p: dict, x: torch.Tensor, kp: torch.Tensor,
+                        vp: torch.Tensor, pos: torch.Tensor,
+                        page_table: torch.Tensor) -> torch.Tensor:
+    """Paged decode block. x: (B, 1, D); kp, vp: this layer's pools
+    (N, K, ps, h), written in place; pos: (B,) true per-slot positions."""
+    B = x.shape[0]
+    y = apply_norm(cfg, p["norm1"], x)
+    q, k, v = project_qkv(cfg, p["attn"], y, y)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    ps = kp.shape[-2]
+    P = page_table.shape[1]
+    pidx = page_table[torch.arange(B, device=x.device),
+                      (pos // ps).clamp(0, P - 1)].long()
+    off = (pos % ps).long()
+    kp[pidx, :, off] = k[:, 0].to(kp.dtype)
+    vp[pidx, :, off] = v[:, 0].to(vp.dtype)
+    o = paged_gqa_decode(q[:, 0], kp, vp, page_table, pos + 1)
+    x = x + o.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
+    return _ffn_residual(cfg, p, x)
+
+
+def init_paged_cache(cfg, num_slots: int, num_pages: int, page_size: int,
+                     max_pages_per_slot: int, dtype=torch.bfloat16,
+                     device="cuda") -> Dict[str, Any]:
+    """Paged decode state: per-layer page pools (stacked over the layers,
+    (L, N, K, ps, h)) shared by all slots, one page-table row + true
+    position + liveness flag per slot. Pages hold the native dtype."""
+    require_full_attention(cfg)
+    dev = require_device(device)
+    shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size,
+             cfg.head_dim)
+    return {
+        "slots": [{"kp": torch.zeros(shape, dtype=dtype, device=dev),
+                   "vp": torch.zeros(shape, dtype=dtype, device=dev)}],
+        "pos": torch.zeros(num_slots, dtype=torch.int32, device=dev),
+        "page_table": torch.full((num_slots, max_pages_per_slot),
+                                 PAGED_NULL_PAGE, dtype=torch.int32,
+                                 device=dev),
+        "active": torch.zeros(num_slots, dtype=torch.bool, device=dev),
+    }
+
+
+def write_prefill_to_pages(cfg, paged: dict, dense: dict, slot: int,
+                           page_ids: torch.Tensor) -> dict:
+    """Admission: scatter a batch=1 dense prefill cache into slot `slot`'s
+    freshly allocated pages and rewrite its table row, position and
+    liveness, in place. The dense cache_len must equal
+    len(page_ids) * page_size."""
+    npg = len(page_ids)
+    page_ids = page_ids.to(paged["page_table"].device)
+    for entry, d_entry in zip(paged["slots"], dense["slots"]):
+        ps = entry["kp"].shape[-2]
+        for pool, x in ((entry["kp"], d_entry["k"]),
+                        (entry["vp"], d_entry["v"])):
+            n, _, T, K, h = x.shape          # (L, 1, npg * ps, K, h)
+            pages = x.reshape(n, npg, ps, K, h).transpose(2, 3)
+            pool[:, page_ids.long()] = pages.to(pool.dtype)
+    row = torch.full_like(paged["page_table"][slot], PAGED_NULL_PAGE)
+    row[:npg] = page_ids.to(row.dtype)
+    paged["page_table"][slot] = row
+    paged["pos"][slot] = int(dense["pos"])
+    paged["active"][slot] = True
+    return paged
+
+
+@dataclass
+class DecoderLM:
+    """Dense decoder for `block_pattern == ("full",)` configs, computing in
+    `compute_dtype` on `device` (the card unless the caller asks for the
+    CPU)."""
+    cfg: Any
+    compute_dtype: torch.dtype = torch.bfloat16
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        require_full_attention(self.cfg)
+        self.device = require_device(self.device)
+
+    def _blocks(self, params: dict):
+        if params["tail"]:
+            raise ValueError("pure full-attention stacks have no tail")
+        blocks = params["blocks"][0]
+        return [layer(blocks, i) for i in range(self.cfg.num_layers)]
+
+    def prefill(self, params: dict, batch: dict, cache_len: int):
+        """batch["tokens"]: (B, S). Returns (last-position logits (B, 1, V),
+        dense cache {"slots": [{"k", "v": (L, B, cache_len, K, h)}],
+        "pos": S}); rows past S are zeros, as in the reference."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        B, S = tokens.shape
+        if cache_len < S:
+            raise ValueError(f"cache_len {cache_len} < prompt length {S}")
+        positions = torch.arange(S, device=self.device)
+        x = embed_tokens(cfg, params["embed"], tokens,
+                         positions[None].expand(B, S), self.compute_dtype)
+        ks, vs = [], []
+        for p in self._blocks(params):
+            x, (k, v) = _block_prefill(cfg, p, x, positions)
+            ks.append(k)
+            vs.append(v)
+
+        def dense(rows):
+            out = torch.zeros((cfg.num_layers, B, cache_len,
+                               cfg.num_kv_heads, cfg.head_dim),
+                              dtype=self.compute_dtype, device=self.device)
+            out[:, :, :S] = torch.stack(rows)
+            return out
+
+        x = apply_norm(cfg, params["final_norm"], x)
+        logits = lm_logits(cfg, params["embed"], x[:, -1:, :])
+        return logits, {"slots": [{"k": dense(ks), "v": dense(vs)}],
+                        "pos": S}
+
+    def decode_step_paged(self, params: dict, cache: dict,
+                          tokens: torch.Tensor):
+        """tokens: (num_slots, 1) against an `init_paged_cache` state.
+        Returns (logits (num_slots, 1, V), cache), the cache updated in
+        place. Each slot embeds/ropes at its own `pos`, writes its K/V row
+        through its page-table row, and attends over exactly `pos + 1`
+        tokens. Inactive slots run masked (null page) and their `pos` does
+        not advance."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        page_table = cache["page_table"]
+        entry = cache["slots"][0]
+        x = embed_tokens(cfg, params["embed"], tokens.long(), pos[:, None],
+                         self.compute_dtype)
+        for i, p in enumerate(self._blocks(params)):
+            x = _block_decode_paged(cfg, p, x, entry["kp"][i],
+                                    entry["vp"][i], pos, page_table)
+        cache["pos"] = pos + cache["active"].to(pos.dtype)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return lm_logits(cfg, params["embed"], x), cache

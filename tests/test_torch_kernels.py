@@ -1,0 +1,165 @@
+"""Parity of the port's kernel modules (`repro_torch.kernels`) with the JAX
+reference, on the CPU, where each wrapper runs its plain PyTorch version.
+
+Inputs are drawn with numpy from fixed seeds and handed to both packages.
+Tolerances: attention 2e-5 absolute in float32 (two float32 softmax orders);
+bank statistics are float64, so counts must be equal and seconds agree to
+rel 1e-12. The CUDA kernels themselves run only on the card: see
+`test_kernels_match_plain_versions_on_card` and `chip_smoke.py`.
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.bank_energy.ref import bank_energy_np, exact_bank_stats_np
+from repro.kernels.flash_attention import flash_attention_ref as jax_flash_ref
+from repro.kernels.paged_gqa_decode import paged_gqa_decode as jax_paged
+from repro.models.attention import blocked_attention
+from repro_torch.kernels.bank_energy import (bank_activity_stats,
+                                             bank_energy_ref,
+                                             exact_bank_stats,
+                                             exact_bank_stats_ref)
+from repro_torch.kernels.bank_energy.ref import running_time
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.kernels.paged_gqa_decode import (paged_gqa_decode,
+                                                  paged_gqa_decode_ref)
+
+ATOL = 2e-5
+
+
+def _paged_case(seed, H, K, d=16, ps=8, N=24, P=6,
+                lengths=(1, 13, 48, 22)):
+    """Ragged lengths (13 and 22 end on a partial page); slot 0 is inactive
+    and points its whole table at the null page 0."""
+    rng = np.random.default_rng(seed)
+    B = len(lengths)
+    q = rng.standard_normal((B, H, d)).astype(np.float32)
+    kp = rng.standard_normal((N, K, ps, d)).astype(np.float32)
+    vp = rng.standard_normal((N, K, ps, d)).astype(np.float32)
+    table = np.zeros((B, P), np.int32)
+    perm = rng.permutation(np.arange(1, N))
+    used = 0
+    for b, n in enumerate(lengths):
+        if b == 0:
+            continue
+        npg = -(-n // ps)
+        table[b, :npg] = perm[used:used + npg]
+        used += npg
+    return q, kp, vp, table, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("backend", ["interpret", "ref"])
+@pytest.mark.parametrize("H,K", [(4, 2), (4, 4), (6, 1)])
+def test_paged_decode_matches_jax(backend, H, K):
+    case = _paged_case(H * 10 + K, H, K)
+    want = np.asarray(jax_paged(*map(jnp.asarray, case), backend=backend))
+    got = paged_gqa_decode(*map(torch.from_numpy, case)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    plain = paged_gqa_decode_ref(*map(torch.from_numpy, case)).numpy()
+    np.testing.assert_array_equal(got, plain)
+
+
+@pytest.mark.parametrize("S", [17, 33, 40])
+@pytest.mark.parametrize("H,K", [(4, 2), (4, 4)])
+def test_flash_attention_matches_jax(S, H, K):
+    rng = np.random.default_rng(S)
+    d = 16
+    q = rng.standard_normal((2, S, H, d)).astype(np.float32)
+    k = rng.standard_normal((2, S, K, d)).astype(np.float32)
+    v = rng.standard_normal((2, S, K, d)).astype(np.float32)
+    got = flash_attention(*map(torch.from_numpy, (q, k, v))).numpy()
+    blocked = np.asarray(blocked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True))
+    np.testing.assert_allclose(got, blocked, atol=ATOL, rtol=0)
+    # the Pallas kernel's oracle takes the heads-major layout (B, H, S, d)
+    ref = np.asarray(jax_flash_ref(*(jnp.asarray(x.transpose(0, 2, 1, 3))
+                                     for x in (q, k, v))))
+    np.testing.assert_allclose(got, ref.transpose(0, 2, 1, 3), atol=ATOL,
+                               rtol=0)
+
+
+def _bank_case(seed, S, C):
+    """A trace mixing microsecond and sub-second segments (the reference's
+    float32 path drifts on these) with zero-occupancy stretches, and a
+    candidate grid with thresholds around the run lengths."""
+    rng = np.random.default_rng(seed)
+    d = np.where(rng.random(S) < 0.5, 1e-6, rng.random(S))
+    o = rng.integers(0, 2**27, S).astype(np.float64)
+    o[rng.random(S) < 0.3] = 0.0
+    u = rng.uniform(2**20, 2**25, C)
+    nb = rng.integers(1, 33, C).astype(np.float64)
+    th = rng.uniform(0, 1e-3, C) * rng.integers(0, 3, C)
+    return d, o, u, nb, th
+
+
+def _rel(a, b):
+    return np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300))
+
+
+@pytest.mark.parametrize("seed,S,C", [(0, 1, 3), (1, 9, 17), (2, 300, 40),
+                                      (3, 4000, 25)])
+def test_exact_bank_stats_match_numpy(seed, S, C):
+    d, o, u, nb, th = _bank_case(seed, S, C)
+    want = exact_bank_stats_np(d, o, u, nb, th)
+    got = exact_bank_stats(*map(torch.from_numpy, (d, o, u, nb, th)))
+    got = got.numpy()
+    np.testing.assert_array_equal(got[:, [1, 3]], want[:, [1, 3]])
+    assert _rel(got[:, [0, 2, 4]], want[:, [0, 2, 4]]) <= 1e-12
+
+
+@pytest.mark.parametrize("seed,S,C", [(4, 1, 2), (5, 50, 11), (6, 3000, 30)])
+def test_bank_energy_lower_bound_matches_numpy(seed, S, C):
+    d, o, u, nb, _ = _bank_case(seed, S, C)
+    want = bank_energy_np(d, o, u, nb)
+    got = bank_activity_stats(*map(torch.from_numpy, (d, o, u, nb))).numpy()
+    np.testing.assert_array_equal(got[:, 1], want[:, 1])
+    assert _rel(got[:, 0], want[:, 0]) <= 1e-12
+
+
+def test_running_time_is_sequential_like_np_cumsum():
+    d = np.random.default_rng(7).random(10_000) * 1e-3
+    np.testing.assert_array_equal(running_time(torch.from_numpy(d)).numpy(),
+                                  np.r_[0.0, np.cumsum(d)])
+
+
+def test_empty_bank_inputs_give_zero_rows():
+    e = torch.zeros(0, dtype=torch.float64)
+    c = torch.ones(3, dtype=torch.float64)
+    assert exact_bank_stats(e, e, c, c, c).shape == (3, 5)
+    assert bank_activity_stats(e, e, c, c).abs().sum() == 0
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_versions_on_card():
+    """Each CUDA kernel against its plain version on the same inputs (run
+    on a machine with a card: `python -m pytest -m gpu tests`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = "cuda"
+    for H, K in [(12, 2), (4, 4)]:
+        case = [torch.from_numpy(x).to(dev)
+                for x in _paged_case(1, H, K, d=128, ps=16, N=40, P=5,
+                                     lengths=(1, 65, 80, 17))]
+        got = paged_gqa_decode(*case)
+        want = paged_gqa_decode_ref(*case)
+        assert (got - want).abs().max().item() <= ATOL
+    rng = np.random.default_rng(0)
+    for S in (17, 200):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (1, S, h, 64)).astype(np.float32)).to(dev) for h in (6, 2, 2))
+        err = (flash_attention(q, k, v)
+               - flash_attention_ref(q, k, v)).abs().max().item()
+        assert err <= ATOL
+    d, o, u, nb, th = (torch.from_numpy(x).to(dev)
+                       for x in _bank_case(2, 3000, 40))
+    got, want = exact_bank_stats(d, o, u, nb, th), exact_bank_stats_ref(
+        d, o, u, nb, th)
+    assert torch.equal(got[:, [1, 3]], want[:, [1, 3]])
+    assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= 1e-12
+    got, want = bank_activity_stats(d, o, u, nb), bank_energy_ref(d, o, u, nb)
+    assert torch.equal(got[:, 1], want[:, 1])
+    assert math.isclose(float((got - want).abs().max()), 0.0, abs_tol=1e-6)
