@@ -1,12 +1,15 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
-Drives the port's main path: paged serving of full-width dsr1d-qwen-1.5b
-(random bf16 weights from a seeded generator), then the Stage-II (C, B)
-sweep over the serving trace. It builds the CUDA kernels from
-`src/repro_torch/csrc/` first, holds every kernel against its plain PyTorch
-version at the main path's shapes, and checks that the main path launched
-each kernel. Each phase prints one JSON line; the last two lines are the
-card's `nvidia-smi` name and power limit, then
+Drives the port's paths: paged serving of full-width dsr1d-qwen-1.5b
+(random bf16 weights from a seeded generator) with native bf16 pages, then
+the Stage-II (C, B) sweep over the serving trace; the same stream with int8
+and with fp8 KV pages, each trace gated at the bf16 run's peak capacity;
+and the int8 SwiGLU FFN of layer 0 through the int8 matmul. It builds the
+CUDA kernels from `src/repro_torch/csrc/` first, holds every kernel against
+its plain PyTorch version at its path's shapes, and checks that each path
+launched its kernels (launch counts are set to 0 just before a path and
+read just after it). Each phase prints one JSON line; the last three lines
+are the kernel summary, the card's `nvidia-smi` name and power limit, then
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -32,24 +35,35 @@ SEED = 0
 ARCH = "dsr1d-qwen-1.5b"
 SLOTS, PAGE_SIZE, CHUNK_STEPS = 8, 16, 16
 REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS = 16, 64, 512, 64
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor-core rate,
-# float32 and float64 rates outside the tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense bf16 and int8
+# tensor-core rates, float32 and float64 rates outside the tensor cores
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
-              torch.float64: 34e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12,
+              torch.float32: 67e12, torch.float64: 34e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 REPLACES = {
     "paged_gqa_decode": "src/repro/kernels/paged_gqa_decode/kernel.py:174",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
     "exact_bank_stats": "src/repro/kernels/bank_energy/kernel.py:144",
     "bank_energy": "src/repro/kernels/bank_energy/kernel.py:192",
+    "paged_gqa_decode_quant":
+        "src/repro/kernels/paged_gqa_decode/kernel.py:118",
+    "int8_matmul": "src/repro/kernels/int8_matmul/kernel.py:41",
 }
 SOURCE = {
     "paged_gqa_decode": "src/repro_torch/csrc/paged_gqa_decode.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "exact_bank_stats": "src/repro_torch/csrc/bank_energy.cu",
     "bank_energy": "src/repro_torch/csrc/bank_energy.cu",
+    "paged_gqa_decode_quant": "src/repro_torch/csrc/paged_gqa_decode.cu",
+    "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
 }
+# the kernels of the bf16 main path (serve + sweep)
+MAIN_PATH_KERNELS = ("paged_gqa_decode", "flash_attention",
+                     "exact_bank_stats", "bank_energy")
+KV_DTYPES = ("native", "int8", "fp8")
+# full-width dsr1d SwiGLU: M = the serve's longest prompt, D 1536, F 8960
+FFN_SHAPES = ((1536, 8960), (8960, 1536))
 
 
 def emit(phase: str, **fields) -> None:
@@ -137,28 +151,50 @@ def kernel_phase(gen) -> dict:
         q, kp, vp, table, lens = decode_case(
             gen, SLOTS, c.num_heads, c.num_kv_heads, c.head_dim, dec_lens,
             dtype, num_pages)
-        out = paged_gqa_decode(q, kp, vp, table, lens)
-        ref = paged_gqa_decode_ref(q.float(), kp.float(), vp.float(), table,
-                                   lens)
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
-        check(bool(torch.isfinite(out.float()).all()), "decode finite")
-        check(err <= TOL[dtype], f"paged decode {tag} {dtype}: {err}")
-        isz = q.element_size()
-        nbytes = (2 * q.numel() * isz + table.numel() * 4 + lens.numel() * 4
-                  + 2 * int(lens.sum()) * c.num_kv_heads * c.head_dim * isz)
-        flops = 4.0 * int(lens.sum()) * c.num_heads * c.head_dim
-        b_ms, b_by = bound(nbytes, flops, dtype)
-        row = dict(shape=f"B{SLOTS} H{c.num_heads} K{c.num_kv_heads} "
-                   f"d{c.head_dim} ps{PAGE_SIZE} ctx{int(lens.sum())}",
-                   arch=tag, dtype=str(dtype), max_abs_err=err,
-                   tolerance=TOL[dtype],
-                   ms=cuda_ms(lambda: paged_gqa_decode(q, kp, vp, table,
-                                                       lens)),
-                   plain_ms=cuda_ms(lambda: paged_gqa_decode_ref(
-                       q, kp, vp, table, lens), reps=5),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        rows.setdefault("paged_gqa_decode", []).append(row)
+        rows.setdefault("paged_gqa_decode", []).append(decode_row(
+            tag, c, paged_gqa_decode, paged_gqa_decode_ref,
+            (q, kp, vp, table, lens), lens, kp.element_size()))
+
+    # the same kernel on the pools of the quantized and mixed paths: fp8
+    # E4M3 codes, and float32 pages under a bfloat16 model (kv_dtype="fp32")
+    from repro_torch.kernels.quant import quantize_page_rows, to_fp8_codes
+    for pools in ("fp8", "float32"):
+        q, kp, vp, table, lens = decode_case(
+            gen, SLOTS, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            dec_lens, torch.float32, num_pages)
+        q = q.to(torch.bfloat16)
+        if pools == "fp8":
+            kp, vp = to_fp8_codes(kp), to_fp8_codes(vp)
+        rows["paged_gqa_decode"].append(decode_row(
+            f"{ARCH} pools {pools}", cfg, paged_gqa_decode,
+            paged_gqa_decode_ref, (q, kp, vp, table, lens), lens,
+            kp.element_size()))
+
+    # the int8 kernel at the int8 path's shapes: pools quantized per row.
+    # gpt2-xl runs in float32, as kernel 1's gpt2-xl case: with a bf16
+    # query the output's own rounding (half a bf16 step is 0.0156 for
+    # values in [4, 8)) exceeds the absolute bf16 tolerance
+    from repro_torch.kernels.paged_gqa_decode import (
+        paged_gqa_decode_quant, paged_gqa_decode_quant_mirror_ref,
+        paged_gqa_decode_quant_ref)
+    for tag, c, dtype in ((ARCH, cfg, torch.bfloat16),
+                          (ARCH, cfg, torch.float32),
+                          ("gpt2-xl", gpt2, torch.float32)):
+        q, kf, vf, table, lens = decode_case(
+            gen, SLOTS, c.num_heads, c.num_kv_heads, c.head_dim, dec_lens,
+            torch.float32, num_pages)
+        q = q.to(dtype)
+        (kp, ks), (vp, vs) = quantize_page_rows(kf), quantize_page_rows(vf)
+        args = (q, kp, vp, ks, vs, table, lens)
+        row = decode_row(f"{tag} int8", c, paged_gqa_decode_quant,
+                         paged_gqa_decode_quant_ref, args, lens, 1,
+                         scale_bytes=4)
+        mirror = paged_gqa_decode_quant_mirror_ref(*args)
+        row["max_abs_err_mirror"] = max_err(paged_gqa_decode_quant(*args),
+                                            mirror)
+        check(row["max_abs_err_mirror"] <= TOL[dtype],
+              f"int8 decode {tag} vs mirror: {row['max_abs_err_mirror']}")
+        rows.setdefault("paged_gqa_decode_quant", []).append(row)
 
     # prefill attention at the serve's longest and a ragged prompt
     for tag, c, S, dtype in ((ARCH, cfg, int(lengths.max()), torch.bfloat16),
@@ -193,7 +229,69 @@ def kernel_phase(gen) -> dict:
                                     reps=5),
                    bound_ms=b_ms, bound_by=b_by, library_ms=lib)
         rows.setdefault("flash_attention", []).append(row)
+
+    rows["int8_matmul"] = [int8_mm_row(gen, int(lengths.max()), k, n)
+                           for k, n in FFN_SHAPES]
     return rows
+
+
+def decode_row(tag, c, fn, ref, args, lens, pool_isz, scale_bytes=0):
+    """One decode kernel against its plain version (on float32 copies of
+    q) at one case; the tolerance is q's dtype's."""
+    q = args[0]
+    out = fn(*args)
+    want = ref(q.float(), *args[1:])
+    torch.cuda.synchronize()
+    err = max_err(out, want)
+    check(bool(torch.isfinite(out.float()).all()), f"decode {tag} finite")
+    check(err <= TOL[q.dtype], f"paged decode {tag} {q.dtype}: {err}")
+    ctx = int(lens.sum())
+    K, d = c.num_kv_heads, c.head_dim
+    nbytes = (2 * q.numel() * q.element_size() + args[-2].numel() * 4
+              + lens.numel() * 4 + 2 * ctx * K * (d * pool_isz + scale_bytes))
+    b_ms, b_by = bound(nbytes, 4.0 * ctx * c.num_heads * d, q.dtype)
+    return dict(shape=f"B{SLOTS} H{c.num_heads} K{K} d{d} ps{PAGE_SIZE} "
+                f"ctx{ctx}", arch=tag, dtype=str(q.dtype),
+                max_abs_err=err, tolerance=TOL[q.dtype],
+                ms=cuda_ms(lambda: fn(*args)),
+                plain_ms=cuda_ms(lambda: ref(*args), reps=5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def int8_mm_row(gen, M, K, N) -> dict:
+    """The int8 matmul at one FFN shape, on operands quantized as the int8
+    SwiGLU quantizes them: the int32 accumulators equal the plain version's
+    exactly, the scaled output within float32's TOL (bit-equal expected).
+    The library yardstick is `torch._int_mm` plus the same epilogue."""
+    from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_acc,
+                                                 int8_matmul_acc_ref,
+                                                 int8_matmul_ref,
+                                                 quantize_cols,
+                                                 quantize_rows)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    (xq, sx), (wq, sw) = quantize_rows(x), quantize_cols(w)
+    acc, acc_ref = int8_matmul_acc(xq, wq), int8_matmul_acc_ref(xq, wq)
+    out, want = int8_matmul(xq, wq, sx, sw), int8_matmul_ref(xq, wq, sx, sw)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(acc, acc_ref)), f"int8 matmul {M}x{K}x{N}: int32 "
+          "accumulators differ from the plain version")
+    err = max_err(out, want)
+    check(err <= TOL[torch.float32], f"int8 matmul {M}x{K}x{N}: {err}")
+    nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
+    b_ms, b_by = bound(nbytes, 2.0 * M * K * N, torch.int8)
+    return dict(shape=f"M{M} K{K} N{N}", dtype="int8", max_abs_err=err,
+                bit_equal=bool(torch.equal(out, want)),
+                tolerance="int32 accumulators exact, output 2e-5",
+                ms=cuda_ms(lambda: int8_matmul(xq, wq, sx, sw)),
+                plain_ms=cuda_ms(lambda: int8_matmul_ref(xq, wq, sx, sw),
+                                 reps=5),
+                bound_ms=b_ms, bound_by=b_by,
+                # the yardstick only: the port never calls torch._int_mm
+                library_ms=cuda_ms(
+                    lambda: torch._int_mm(xq, wq).float() * sx * sw))
 
 
 # -------------------------------------------------------------- bank kernels
@@ -266,9 +364,14 @@ def main() -> None:
     from repro_torch.core.candidates import Candidate
     from repro_torch.core.explorer import MIB, min_capacity_mib, sweep
     from repro_torch.kernels import build
+    from repro_torch.examples.int8_serving import quantized_ffn
+    from repro_torch.examples.quant_serving import (agreement,
+                                                    gate_at_capacity,
+                                                    serve_stream)
     from repro_torch.models import DecoderLM
+    from repro_torch.models.ffn import apply_ffn
+    from repro_torch.models.transformer import layer
     from repro_torch.params import init_params
-    from repro_torch.serve import PagedContinuousBatcher, Request
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -296,27 +399,29 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, small.vocab_size, int(n))
                for n in rng.integers(5, 60, 6)]
-    served = {}
-    for dev, (m, p) in outs.items():
-        cb = PagedContinuousBatcher(m, p, num_slots=3, page_size=8,
-                                    num_pages=40, max_pages_per_slot=12,
-                                    chunk_steps=4)
-        for i, pr in enumerate(prompts):
-            cb.submit(Request(rid=i, tokens=pr, max_new_tokens=12))
-        done = sorted(cb.run(), key=lambda r: r.rid)
-        tab = sweep(cb.occupancy_bundle(), mem_name="kv",
-                    capacities_mib=[1, 2], banks=[1, 2, 4], device=dev,
-                    prune=True)
-        served[dev] = ([r.output for r in done],
-                       [(r.capacity_mib, r.banks, r.result.e_total)
-                        for r in tab.rows])
-    tok_eq = served["cuda"][0] == served["cpu"][0]
-    check(tok_eq, "reduced-model greedy tokens on the card == CPU plain path")
-    check([r[:2] for r in served["cuda"][1]] == [r[:2] for r in
-                                                 served["cpu"][1]],
-          "reduced-model sweep rows on the card == CPU plain path")
+    sweep_rows = {}
+    for kv in KV_DTYPES:
+        served = {}
+        for dev, (m, p) in outs.items():
+            cb, done = serve_stream(m, p, prompts, kv, 12, num_slots=3,
+                                    page_size=8, num_pages=40,
+                                    max_pages_per_slot=12, chunk_steps=4)
+            tab = sweep(cb.occupancy_bundle(), mem_name="kv",
+                        capacities_mib=[1, 2], banks=[1, 2, 4], device=dev,
+                        prune=True)
+            served[dev] = ([r.output for r in done],
+                           [(r.capacity_mib, r.banks, r.result.e_total)
+                            for r in tab.rows])
+        check(served["cuda"][0] == served["cpu"][0],
+              f"reduced-model greedy tokens with {kv} pages on the card == "
+              "CPU plain path")
+        check([r[:2] for r in served["cuda"][1]] == [r[:2] for r in
+                                                     served["cpu"][1]],
+              f"reduced-model sweep rows with {kv} pages on the card == CPU "
+              "plain path")
+        sweep_rows[kv] = len(served["cuda"][1])
     emit("reference", arch=small.name, requests=len(prompts),
-         tokens_equal=tok_eq, sweep_rows=len(served["cuda"][1]))
+         kv_dtypes=list(KV_DTYPES), tokens_equal=True, sweep_rows=sweep_rows)
 
     # ---- serve: the main path at full width, launch counts from 0 ----
     cfg = get_arch(ARCH)
@@ -326,36 +431,16 @@ def main() -> None:
         SEED), device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    lengths = prompt_lengths()
-    per_slot = -(-(PROMPT_MAX + NEW_TOKENS - 1) // PAGE_SIZE)
-    cb = PagedContinuousBatcher(
-        model, params, num_slots=SLOTS, page_size=PAGE_SIZE,
-        num_pages=SLOTS * per_slot + 1, max_pages_per_slot=per_slot,
-        chunk_steps=CHUNK_STEPS)
     prng = np.random.default_rng(SEED + 1)
-    for i, n in enumerate(lengths):
-        cb.submit(Request(rid=i, tokens=prng.integers(0, cfg.vocab_size,
-                                                      int(n)),
-                          max_new_tokens=NEW_TOKENS))
-    build.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = cb.run()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+    prompts = [prng.integers(0, cfg.vocab_size, int(n))
+               for n in prompt_lengths()]
+    cb, done, serve_s, serve_counts = serve_full(model, params, prompts,
+                                                 "native")
     st = cb.stats
-    check(len(done) == REQUESTS and st.finished == REQUESTS,
-          "all requests finished")
-    check(all(len(r.output) == NEW_TOKENS
-              and all(0 <= t < cfg.vocab_size for t in r.output)
-              for r in done), "every request has NEW_TOKENS in-vocab tokens")
-    serve_counts = build.launch_counts()
     steps = st.chunks * CHUNK_STEPS
     check(serve_counts["paged_gqa_decode"] == cfg.num_layers * steps,
           f"decode launches {serve_counts['paged_gqa_decode']} == layers x "
           f"steps {cfg.num_layers * steps}")
-    check(serve_counts["flash_attention"] == cfg.num_layers * st.prefills,
-          "prefill launches == layers x prefills")
     emit("serve", arch=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, vocab=cfg.vocab_size, dtype="bfloat16",
          slots=SLOTS, page_size=PAGE_SIZE, chunk_steps=CHUNK_STEPS,
@@ -379,7 +464,7 @@ def main() -> None:
     sweep_s = time.perf_counter() - t0
     launches = build.launch_counts()
     check(len(table.rows) > 0, "sweep table is non-empty")
-    for name in REPLACES:
+    for name in MAIN_PATH_KERNELS:
         check(launches[name] > 0, f"main path launched {name}")
     plain = sweep(bundle, device="cpu", **sweep_kw)
     check([(r.capacity_mib, r.banks) for r in table.rows]
@@ -414,9 +499,100 @@ def main() -> None:
     emit("bank_kernels", main_path=bank_main, synthetic_1m_x_360=bank_big,
          wall_s=time.perf_counter() - t0)
 
+    # ---- serve_quant: the same stream with int8 and with fp8 pages ----
+    quant = {}
+    for kv, kernel in (("int8", "paged_gqa_decode_quant"),
+                       ("fp8", "paged_gqa_decode")):
+        qcb, qdone, q_s, counts = serve_full(model, params, prompts, kv)
+        qst = qcb.stats
+        q_steps = qst.chunks * CHUNK_STEPS
+        check(counts[kernel] == cfg.num_layers * q_steps,
+              f"{kv}: {kernel} launches {counts[kernel]} == layers x steps "
+              f"{cfg.num_layers * q_steps}")
+        other = ({"paged_gqa_decode", "paged_gqa_decode_quant"} - {kernel})
+        check(all(counts[k] == 0 for k in other),
+              f"{kv}: no launches of {other}")
+        quant[kv] = qcb
+        emit("serve_quant", kv_dtype=kv, requests_finished=qst.finished,
+             decode_tokens=qst.decode_steps, decode_steps=q_steps,
+             peak_pages=qst.peak_pages, page_bytes=qcb.page_bytes,
+             row_bytes=qcb.row_bytes,
+             peak_kv_bytes=qcb.ledger.trace.peak_needed(), wall_s=q_s,
+             decode_tokens_per_s=qst.decode_steps / q_s,
+             # reported only: random bf16 weights at full width may diverge
+             requests_agreeing_with_bf16=agreement(qdone, done),
+             first_divergence_from_bf16=[first_divergence(a.output, b.output)
+                                         for a, b in zip(qdone, done)],
+             launches=counts)
+        if kv == "int8":
+            launches["paged_gqa_decode_quant"] = counts[kernel]
+
+    # ---- stage2_quant: each dtype's trace gated at the bf16 peak ----
+    bundles = {"native": bundle, **{kv: c.occupancy_bundle()
+                                    for kv, c in quant.items()}}
+    cap = trace.peak_needed()
+    t0 = time.perf_counter()
+    on_card = gate_at_capacity(bundles, cap, device="cuda")
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    on_cpu = gate_at_capacity(bundles, cap, device="cpu")
+    energy = {}
+    for kv in bundles:
+        a, b = on_card[kv], on_cpu[kv]
+        check(bool(np.array_equal(a.n_off, b.n_off)
+                   and np.array_equal(a.evaluated, b.evaluated)),
+              f"stage2_quant {kv}: rows equal the plain version's")
+        rel_q = float(np.max(np.abs(a.e_total / b.e_total - 1.0)))
+        check(rel_q <= 1e-12, f"stage2_quant {kv}: e_total rel err {rel_q}")
+        energy[kv] = dict(e_total_j=float(a.e_total[0]), e_total_rel_err=rel_q,
+                          n_off=int(a.n_off[0]),
+                          peak_needed_bytes=bundles[kv].traces[
+                              "kv"].peak_needed())
+    emit("stage2_quant", capacity_bytes=cap, banks=8, alpha=1.0,
+         energy=energy, wall_s_card=gate_s,
+         saving_vs_bf16={kv: 1.0 - energy[kv]["e_total_j"]
+                         / energy["native"]["e_total_j"] for kv in quant})
+
+    # ---- int8_ffn: layer 0's SwiGLU through the int8 matmul ----
+    ffn0 = layer(params["blocks"][0], 0)["ffn"]
+    M = int(prompt_lengths().max())
+    x = torch.randn((1, M, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q8 = quantized_ffn(ffn0, x)
+    torch.cuda.synchronize()
+    ffn_s = time.perf_counter() - t0
+    launches["int8_matmul"] = build.launch_counts()["int8_matmul"]
+    check(launches["int8_matmul"] == 3, "int8 FFN launched the int8 matmul "
+          "once per projection")
+    check(q8.shape == x.shape and bool(torch.isfinite(q8).all()),
+          "int8 FFN output finite, of the input's shape")
+    fp = apply_ffn(cfg, ffn0, x).float()
+    rel_fp = float(torch.linalg.norm(q8 - fp) / torch.linalg.norm(fp))
+    plain = quantized_ffn(_to(ffn0, "cpu"), x.cpu())
+    rel_plain = float(torch.linalg.norm(q8.cpu() - plain)
+                      / torch.linalg.norm(plain))
+    check(rel_plain <= 1e-3, f"int8 FFN on the card vs its CPU plain path: "
+          f"rel L2 {rel_plain}")
+    emit("int8_ffn", arch=cfg.name, layer=0, M=M, d_model=cfg.d_model,
+         d_ff=cfg.d_ff, rel_l2_vs_bf16_ffn=rel_fp,
+         rel_l2_vs_cpu_plain=rel_plain, wall_s=ffn_s,
+         launches=launches["int8_matmul"])
+
     kernels = []
     for name in ("paged_gqa_decode", "flash_attention"):
         row = rows[name][0]            # the main path's dtype (bfloat16)
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCE[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape=row["shape"], dtype=row["dtype"]))
+    for name in ("paged_gqa_decode_quant", "int8_matmul"):
+        row = rows[name][0]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name],
             replaces=REPLACES[name], launches=launches[name],
@@ -438,6 +614,48 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def first_divergence(a, b) -> int:
+    """Index of the first token where two greedy outputs differ (their
+    length if they never do)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def serve_full(model, params, prompts, kv_dtype: str):
+    """The full-width stream through one batcher with `kv_dtype` pages,
+    launch counts set to 0 just before and read just after. Checks that
+    every request finished with NEW_TOKENS in-vocab tokens and that each
+    admission ran the prefill kernel once per layer. Returns (batcher,
+    finished requests by rid, wall seconds, launch counts)."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import PagedContinuousBatcher, Request
+    cfg = model.cfg
+    per_slot = -(-(PROMPT_MAX + NEW_TOKENS - 1) // PAGE_SIZE)
+    cb = PagedContinuousBatcher(
+        model, params, num_slots=SLOTS, page_size=PAGE_SIZE,
+        num_pages=SLOTS * per_slot + 1, max_pages_per_slot=per_slot,
+        chunk_steps=CHUNK_STEPS, kv_dtype=kv_dtype)
+    for i, p in enumerate(prompts):
+        cb.submit(Request(rid=i, tokens=p, max_new_tokens=NEW_TOKENS))
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = sorted(cb.run(), key=lambda r: r.rid)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = build.launch_counts()
+    st = cb.stats
+    check(len(done) == len(prompts) and st.finished == len(prompts),
+          f"{kv_dtype}: all requests finished")
+    check(all(len(r.output) == NEW_TOKENS
+              and all(0 <= t < cfg.vocab_size for t in r.output)
+              for r in done),
+          f"{kv_dtype}: every request has NEW_TOKENS in-vocab tokens")
+    check(counts["flash_attention"] == cfg.num_layers * st.prefills,
+          f"{kv_dtype}: prefill launches == layers x prefills")
+    return cb, done, wall_s, counts
 
 
 def _to(tree, device):

@@ -6,6 +6,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #define TRAPTI_EXPORT extern "C" __attribute__((visibility("default")))
@@ -14,13 +15,14 @@ TRAPTI_EXPORT const char* trapti_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype codes passed by the wrappers
-enum TraptiDtype { kF32 = 0, kBF16 = 1 };
+// dtype codes passed by the wrappers (kE4M3: fp8 E4M3 codes held as uint8)
+enum TraptiDtype { kF32 = 0, kBF16 = 1, kF16 = 2, kE4M3 = 3 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);

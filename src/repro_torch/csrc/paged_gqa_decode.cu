@@ -1,14 +1,28 @@
-// Paged GQA decode attention for Hopper.
+// Paged GQA decode attention for Hopper, over float, fp8 and int8 pools.
 //
-// Replaces repro/kernels/paged_gqa_decode/kernel.py paged_gqa_decode_kernel
-// (_paged_decode_kernel): one query token per slot against K/V rows that
-// live in a global page pool (N, K, ps, d) and are reached through the
-// slot's page-table row; positions >= lengths[b] (including the tail of a
-// partially filled last page) are masked.
+// Replaces two Pallas kernels of repro/kernels/paged_gqa_decode/kernel.py:
+//   * paged_gqa_decode_kernel (_paged_decode_kernel): one query token per
+//     slot against K/V rows that live in a global page pool (N, K, ps, d)
+//     and are reached through the slot's page-table row; positions
+//     >= lengths[b] (including the tail of a partially filled last page)
+//     are masked. Pools hold float32, bfloat16, float16 or fp8 E4M3 codes,
+//     read as float32 whatever the query's type (the reference casts both
+//     to float32 in its body; kv_dtype="fp32" under a bf16 model gives
+//     this mix). Entry point paged_gqa_decode_fwd.
+//   * paged_gqa_decode_quant_kernel (_paged_decode_quant_kernel): the same
+//     control flow and accumulator math on int8 pools, each row multiplied
+//     by its float32 scale (pools (N, K, ps) of scales, reached through the
+//     same page-table indirection as the row) in registers before use.
+//     Entry point paged_gqa_decode_quant_fwd.
+// One kernel template serves both: a load policy turns a pool element into
+// float32 (and says whether rows carry a scale). The query's type is a
+// run-time argument: q is read once and the output written once per block,
+// outside the loops, so templating on it would only double the build.
 //
 // Bound on the H100: each call reads every resident K and V row once
-// (2 * lengths * K * d elements per slot) and does about 4 * H * d flops per
-// row, a few flops per byte, so it is bound by bytes. The design:
+// (2 * lengths * K * d elements per slot, plus 2 scales per row for int8)
+// and does about 4 * H * d flops per row, a few flops per byte, so it is
+// bound by bytes. The design:
 //   * one block per (KV head, slot). The block reads the slot's page-table
 //     row itself (the TPU scalar-prefetched it) and walks the context in
 //     tiles of 32 rows, computing each row's page and offset, up to
@@ -36,16 +50,63 @@ constexpr int kTile = 32;     // context rows per tile (one per lane in softmax)
 constexpr int kMaxAcc = 16;   // outputs per thread: group * d <= 4096
 constexpr float kNegInf = -1.0e30f;
 
-template <typename T, int DC>  // DC: head dims per lane, d <= 32 * DC
+// E4M3 code -> float32, exact: sign, 4 exponent bits (bias 7), 3 mantissa
+// bits; exponent 0 is subnormal (m * 2^-9), 0x7F / 0xFF are NaN. The plain
+// version's 256-entry table (repro_torch/kernels/quant.py fp8_table) is
+// built by the same rule.
+__device__ __forceinline__ float e4m3_to_f32(unsigned int c) {
+  const unsigned int e = (c >> 3) & 0xFu, m = c & 0x7u;
+  float mag;
+  if (e == 0)
+    mag = static_cast<float>(m) * 0.001953125f;
+  else if (e == 15 && m == 7)
+    mag = __int_as_float(0x7fc00000);
+  else
+    mag = __int_as_float(static_cast<int>(((e + 120u) << 23) | (m << 20)));
+  return (c & 0x80u) ? -mag : mag;
+}
+
+// Load policies: the pool's element type, its float32 value, and whether
+// each row carries a float32 scale.
+template <typename E>
+struct LoadFloat {
+  using Elem = E;
+  static constexpr bool kScaled = false;
+  static __device__ __forceinline__ float get(const E* p, long long i) {
+    return to_f32(p[i]);
+  }
+};
+struct LoadE4M3 {
+  using Elem = unsigned char;
+  static constexpr bool kScaled = false;
+  static __device__ __forceinline__ float get(const Elem* p, long long i) {
+    return e4m3_to_f32(p[i]);
+  }
+};
+struct LoadInt8 {
+  using Elem = signed char;
+  static constexpr bool kScaled = true;
+  static __device__ __forceinline__ float get(const Elem* p, long long i) {
+    return static_cast<float>(p[i]);
+  }
+};
+
+template <typename Load, int DC>  // DC: dims per lane, d <= 32 * DC
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                    const T* __restrict__ vpool, const int* __restrict__ table,
-                    const int* __restrict__ lengths, T* __restrict__ out,
-                    int H, int K, int d, int ps, int P, int N, float scale) {
+paged_decode_kernel(const void* __restrict__ q,
+                    const typename Load::Elem* __restrict__ kpool,
+                    const typename Load::Elem* __restrict__ vpool,
+                    const float* __restrict__ kscale,
+                    const float* __restrict__ vscale,
+                    const int* __restrict__ table,
+                    const int* __restrict__ lengths, void* __restrict__ out,
+                    int H, int K, int d, int ps, int P, int N, float scale,
+                    bool q_bf16) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = H / K;
-  long long* row_off = reinterpret_cast<long long*>(smem_raw);  // kTile
-  float* q_sh = reinterpret_cast<float*>(row_off + kTile);      // G * d
+  long long* row_id = reinterpret_cast<long long*>(smem_raw);   // kTile
+  float* vs_sh = reinterpret_cast<float*>(row_id + kTile);      // kTile
+  float* q_sh = vs_sh + kTile;     // G * d
   float* w_sh = q_sh + G * d;      // G * kTile: scores, then weights
   float* m_sh = w_sh + G * kTile;  // G
   float* l_sh = m_sh + G;          // G
@@ -58,7 +119,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 
   for (int i = tid; i < G * d; i += kThreads) {
     const int g = i / d, c = i - g * d;
-    q_sh[i] = to_f32(q[(static_cast<size_t>(b) * H + kh * G + g) * d + c]) *
+    const size_t qi = (static_cast<size_t>(b) * H + kh * G + g) * d + c;
+    q_sh[i] = (q_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(q)[qi])
+                      : static_cast<const float*>(q)[qi]) *
               scale;
   }
   for (int g = tid; g < G; g += kThreads) {
@@ -78,14 +141,24 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
         const int t = t0 + r;
         int page = row_table[t / ps];
         if (page < 0 || page >= N) page = 0;
-        const long long off =
-            ((static_cast<long long>(page) * K + kh) * ps + (t % ps)) * d;
-        if (lane == 0) row_off[r] = off;
+        // the row's index in the pool's (N, K, ps) row space: its elements
+        // start at row * d, its scale (int8 pools) is scale[row]
+        const long long row =
+            (static_cast<long long>(page) * K + kh) * ps + (t % ps);
+        const long long off = row * d;
+        float ks = 1.f;
+        if constexpr (Load::kScaled) ks = kscale[row];
+        if (lane == 0) {
+          row_id[r] = row;
+          if constexpr (Load::kScaled) vs_sh[r] = vscale[row];
+        }
         float kf[DC];
 #pragma unroll
         for (int i = 0; i < DC; ++i) {
           const int c = lane + 32 * i;
-          kf[i] = c < d ? to_f32(kpool[off + c]) : 0.f;
+          float x = c < d ? Load::get(kpool, off + c) : 0.f;
+          if constexpr (Load::kScaled) x *= ks;
+          kf[i] = x;
         }
         for (int g = 0; g < G; ++g) {
           float part = 0.f;
@@ -126,7 +199,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
         const int g = idx / d, c = idx - g * d;
         float a = acc[j] * c_sh[g];
         const float* w = w_sh + g * kTile;
-        for (int r = 0; r < n; ++r) a += w[r] * to_f32(vpool[row_off[r] + c]);
+        for (int r = 0; r < n; ++r) {
+          float x = Load::get(vpool, row_id[r] * d + c);
+          if constexpr (Load::kScaled) x *= vs_sh[r];
+          a += w[r] * x;
+        }
         acc[j] = a;
       }
     }
@@ -138,32 +215,46 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     const int idx = tid + j * kThreads;
     if (idx < G * d) {
       const int g = idx / d, c = idx - g * d;
-      out[(static_cast<size_t>(b) * H + kh * G + g) * d + c] =
-          from_f32<T>(acc[j] / fmaxf(l_sh[g], 1e-30f));
+      const size_t oi = (static_cast<size_t>(b) * H + kh * G + g) * d + c;
+      const float o = acc[j] / fmaxf(l_sh[g], 1e-30f);
+      if (q_bf16)
+        static_cast<__nv_bfloat16*>(out)[oi] = __float2bfloat16(o);
+      else
+        static_cast<float*>(out)[oi] = o;
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* table, const int* lengths, void* out, int B,
-                   int H, int K, int d, int ps, int P, int N, float scale,
-                   cudaStream_t stream) {
-  const int G = H / K;
-  if (G * d > kThreads * kMaxAcc || d > 256) return cudaErrorInvalidValue;
-  const dim3 grid(K, B);
-  const size_t smem =
-      kTile * sizeof(long long) + (G * d + G * kTile + 3 * G) * sizeof(float);
-  const T* qp = static_cast<const T*>(q);
-  const T* kpp = static_cast<const T*>(kp);
-  const T* vpp = static_cast<const T*>(vp);
-  T* op = static_cast<T*>(out);
+struct Args {
+  const void *q, *kp, *vp;
+  const float *ks, *vs;
+  const int *table, *lengths;
+  void* out;
+  int B, H, K, d, ps, P, N;
+  float scale;
+  int q_dtype;
+  cudaStream_t stream;
+};
+
+template <typename Load>
+cudaError_t launch(const Args& a) {
+  if (a.q_dtype != kF32 && a.q_dtype != kBF16) return cudaErrorInvalidValue;
+  const int G = a.H / a.K;
+  if (G * a.d > kThreads * kMaxAcc || a.d > 256) return cudaErrorInvalidValue;
+  const dim3 grid(a.K, a.B);
+  const size_t smem = kTile * sizeof(long long) +
+                      (kTile + G * a.d + G * kTile + 3 * G) * sizeof(float);
+  using E = typename Load::Elem;
+  const E* kpp = static_cast<const E*>(a.kp);
+  const E* vpp = static_cast<const E*>(a.vp);
+  const bool q_bf16 = a.q_dtype == kBF16;
+  // head dims up to 64, 128 and 256: lanes past d are masked
 #define TRAPTI_PAGED(DC)                                                    \
-  paged_decode_kernel<T, DC><<<grid, kThreads, smem, stream>>>(             \
-      qp, kpp, vpp, table, lengths, op, H, K, d, ps, P, N, scale)
-  if (d <= 32) TRAPTI_PAGED(1);
-  else if (d <= 64) TRAPTI_PAGED(2);
-  else if (d <= 128) TRAPTI_PAGED(4);
+  paged_decode_kernel<Load, DC><<<grid, kThreads, smem, a.stream>>>(        \
+      a.q, kpp, vpp, a.ks, a.vs, a.table, a.lengths, a.out, a.H, a.K, a.d,  \
+      a.ps, a.P, a.N, a.scale, q_bf16)
+  if (a.d <= 64) TRAPTI_PAGED(2);
+  else if (a.d <= 128) TRAPTI_PAGED(4);
   else TRAPTI_PAGED(8);
 #undef TRAPTI_PAGED
   return cudaGetLastError();
@@ -171,24 +262,38 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// q: (B, H, d); kp, vp: (N, K, ps, d); table: (B, P) int32; lengths: (B,)
-// int32; out: (B, H, d); all contiguous; dtype 0 = float32, 1 = bfloat16.
+// q: (B, H, d) float32 (q_dtype 0) or bfloat16 (1); kp, vp: (N, K, ps, d)
+// float32 (pool_dtype 0), bfloat16 (1), float16 (2) or fp8 E4M3 codes (3);
+// table: (B, P) int32; lengths: (B,) int32; out: (B, H, d) in q's type; all
+// contiguous.
 TRAPTI_EXPORT int paged_gqa_decode_fwd(const void* q, const void* kp,
                                        const void* vp, const void* table,
                                        const void* lengths, void* out, int B,
                                        int H, int K, int d, int ps, int P,
-                                       int N, float scale, int dtype,
-                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* tp = static_cast<const int*>(table);
-  const int* lp = static_cast<const int*>(lengths);
-  cudaError_t err;
-  if (dtype == kF32)
-    err = launch<float>(q, kp, vp, tp, lp, out, B, H, K, d, ps, P, N, scale, s);
-  else if (dtype == kBF16)
-    err = launch<__nv_bfloat16>(q, kp, vp, tp, lp, out, B, H, K, d, ps, P, N,
-                                scale, s);
-  else
-    err = cudaErrorInvalidValue;
+                                       int N, float scale, int q_dtype,
+                                       int pool_dtype, void* stream) {
+  const Args a{q, kp, vp, nullptr, nullptr,
+               static_cast<const int*>(table),
+               static_cast<const int*>(lengths), out, B, H, K, d, ps, P, N,
+               scale, q_dtype, static_cast<cudaStream_t>(stream)};
+  cudaError_t err = cudaErrorInvalidValue;
+  if (pool_dtype == kF32) err = launch<LoadFloat<float>>(a);
+  else if (pool_dtype == kBF16) err = launch<LoadFloat<__nv_bfloat16>>(a);
+  else if (pool_dtype == kF16) err = launch<LoadFloat<__half>>(a);
+  else if (pool_dtype == kE4M3) err = launch<LoadE4M3>(a);
   return static_cast<int>(err);
+}
+
+// As paged_gqa_decode_fwd with int8 pools kp, vp (N, K, ps, d) and their
+// per-row float32 scales ks, vs (N, K, ps).
+TRAPTI_EXPORT int paged_gqa_decode_quant_fwd(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* table, const void* lengths, void* out, int B,
+    int H, int K, int d, int ps, int P, int N, float scale, int q_dtype,
+    void* stream) {
+  const Args a{q, kp, vp, static_cast<const float*>(ks),
+               static_cast<const float*>(vs), static_cast<const int*>(table),
+               static_cast<const int*>(lengths), out, B, H, K, d, ps, P, N,
+               scale, q_dtype, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(launch<LoadInt8>(a));
 }

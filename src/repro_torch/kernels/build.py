@@ -26,9 +26,12 @@ from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# -split-compile=0 optimizes a source's kernels on all host threads, so the
+# many template instances of paged_gqa_decode.cu do not serialize the build
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("bank_energy", "flash_attention", "paged_gqa_decode")
+              "-shared", "-Xcompiler", "-fPIC", "-split-compile=0")
+SOURCES = ("bank_energy", "flash_attention", "int8_matmul",
+           "paged_gqa_decode")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

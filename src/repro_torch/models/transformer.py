@@ -3,7 +3,7 @@
 serving entry points of the reference's `repro/models/transformer.py`:
 
     prefill(params, batch, cache_len)          — prompt forward + dense KV
-    init_paged_cache(...)                      — per-layer page pools
+    init_paged_cache(..., kv_dtype)            — per-layer page pools
     write_prefill_to_pages(cfg, paged, dense, slot, page_ids)
     decode_step_paged(params, cache, tokens)   — one token per slot
 
@@ -13,6 +13,8 @@ unstacked `tail` is empty for these configs. Prefill attention runs the
 hand-written flash kernel where the reference runs jnp `blocked_attention`;
 paged decode runs the paged GQA kernel. Both dispatch on the tensors'
 device: the CUDA kernel on the card, the plain PyTorch version on the CPU.
+Pages hold the model dtype, another float dtype, fp8 E4M3 codes (uint8) or
+int8 with per-row float32 scales (`kv_dtype`, as in the reference).
 
 Unlike the reference's immutable arrays, the paged cache is updated in
 place: `write_prefill_to_pages` and `decode_step_paged` write into the page
@@ -21,13 +23,16 @@ pools and the position / table / liveness tensors they are given.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.device import require_device
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_gqa_decode import paged_gqa_decode
+from repro_torch.kernels.paged_gqa_decode import (paged_gqa_decode,
+                                                  paged_gqa_decode_quant)
+from repro_torch.kernels.quant import (FP8_STORAGE_DTYPE, kv_dtype_spec,
+                                       quantize_page_rows, to_fp8_codes)
 from repro_torch.models.attention import project_qkv
 from repro_torch.models.common import (apply_norm, apply_rope, embed_tokens,
                                        lm_logits)
@@ -70,42 +75,77 @@ def _block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
     return _ffn_residual(cfg, p, x), (k, v)
 
 
-def _block_decode_paged(cfg, p: dict, x: torch.Tensor, kp: torch.Tensor,
-                        vp: torch.Tensor, pos: torch.Tensor,
+def _pool_cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Cast KV rows to a pool dtype. fp8 pools store E4M3 bit codes in
+    uint8, and the cast saturates because E4M3 overflows to NaN, not inf."""
+    if dtype == FP8_STORAGE_DTYPE:
+        return to_fp8_codes(x)
+    return x.to(dtype)
+
+
+def _block_decode_paged(cfg, p: dict, x: torch.Tensor, pools: dict,
+                        pos: torch.Tensor,
                         page_table: torch.Tensor) -> torch.Tensor:
-    """Paged decode block. x: (B, 1, D); kp, vp: this layer's pools
-    (N, K, ps, h), written in place; pos: (B,) true per-slot positions."""
+    """Paged decode block. x: (B, 1, D); pools: this layer's "kp"/"vp"
+    (N, K, ps, h), plus "ks"/"vs" (N, K, ps) scales for int8 pages, written
+    in place; pos: (B,) true per-slot positions."""
     B = x.shape[0]
     y = apply_norm(cfg, p["norm1"], x)
     q, k, v = project_qkv(cfg, p["attn"], y, y)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    kp, vp = pools["kp"], pools["vp"]
     ps = kp.shape[-2]
     P = page_table.shape[1]
     pidx = page_table[torch.arange(B, device=x.device),
                       (pos // ps).clamp(0, P - 1)].long()
     off = (pos % ps).long()
-    kp[pidx, :, off] = k[:, 0].to(kp.dtype)
-    vp[pidx, :, off] = v[:, 0].to(vp.dtype)
-    o = paged_gqa_decode(q[:, 0], kp, vp, page_table, pos + 1)
+    if "ks" in pools:
+        # int8 pages: quantize the appended row per (slot, KV head); per-row
+        # scales keep the append local, rows already in the page keep their
+        # codes and scales
+        ks, vs = pools["ks"], pools["vs"]
+        qk, sk = quantize_page_rows(k[:, 0].float())
+        qv, sv = quantize_page_rows(v[:, 0].float())
+        kp[pidx, :, off] = qk
+        vp[pidx, :, off] = qv
+        ks[pidx, :, off] = sk
+        vs[pidx, :, off] = sv
+        o = paged_gqa_decode_quant(q[:, 0], kp, vp, ks, vs, page_table,
+                                   pos + 1)
+    else:
+        kp[pidx, :, off] = _pool_cast(k[:, 0], kp.dtype)
+        vp[pidx, :, off] = _pool_cast(v[:, 0], vp.dtype)
+        o = paged_gqa_decode(q[:, 0], kp, vp, page_table, pos + 1)
     x = x + o.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
     return _ffn_residual(cfg, p, x)
 
 
 def init_paged_cache(cfg, num_slots: int, num_pages: int, page_size: int,
                      max_pages_per_slot: int, dtype=torch.bfloat16,
-                     device="cuda") -> Dict[str, Any]:
+                     device="cuda", kv_dtype: Optional[str] = None
+                     ) -> Dict[str, Any]:
     """Paged decode state: per-layer page pools (stacked over the layers,
     (L, N, K, ps, h)) shared by all slots, one page-table row + true
-    position + liveness flag per slot. Pages hold the native dtype."""
+    position + liveness flag per slot.
+
+    `kv_dtype` selects the page storage (see `kernels.quant`): None or
+    "native" keeps pages in `dtype`; "fp32"/"bf16"/"fp16" force a float
+    dtype; "int8" adds per-row float32 scale pools "ks"/"vs"
+    (L, N, K, ps); "fp8" stores E4M3 codes as uint8."""
     require_full_attention(cfg)
     dev = require_device(device)
+    spec = kv_dtype_spec(kv_dtype or "native", native=dtype)
     shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size,
              cfg.head_dim)
+    entry = {"kp": torch.zeros(shape, dtype=spec.pool_dtype, device=dev),
+             "vp": torch.zeros(shape, dtype=spec.pool_dtype, device=dev)}
+    if spec.has_scales:
+        entry["ks"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        entry["vs"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
     return {
-        "slots": [{"kp": torch.zeros(shape, dtype=dtype, device=dev),
-                   "vp": torch.zeros(shape, dtype=dtype, device=dev)}],
+        "slots": [entry],
         "pos": torch.zeros(num_slots, dtype=torch.int32, device=dev),
         "page_table": torch.full((num_slots, max_pages_per_slot),
                                  PAGED_NULL_PAGE, dtype=torch.int32,
@@ -117,18 +157,25 @@ def init_paged_cache(cfg, num_slots: int, num_pages: int, page_size: int,
 def write_prefill_to_pages(cfg, paged: dict, dense: dict, slot: int,
                            page_ids: torch.Tensor) -> dict:
     """Admission: scatter a batch=1 dense prefill cache into slot `slot`'s
-    freshly allocated pages and rewrite its table row, position and
-    liveness, in place. The dense cache_len must equal
+    freshly allocated pages (cast, fp8-encoded or int8-quantized per row to
+    the pool's format) and rewrite its table row, position and liveness, in
+    place. The dense cache_len must equal
     len(page_ids) * page_size."""
     npg = len(page_ids)
     page_ids = page_ids.to(paged["page_table"].device)
+    idx = page_ids.long()
     for entry, d_entry in zip(paged["slots"], dense["slots"]):
         ps = entry["kp"].shape[-2]
-        for pool, x in ((entry["kp"], d_entry["k"]),
-                        (entry["vp"], d_entry["v"])):
+        for pool, scales, x in ((entry["kp"], entry.get("ks"), d_entry["k"]),
+                                (entry["vp"], entry.get("vs"), d_entry["v"])):
             n, _, T, K, h = x.shape          # (L, 1, npg * ps, K, h)
             pages = x.reshape(n, npg, ps, K, h).transpose(2, 3)
-            pool[:, page_ids.long()] = pages.to(pool.dtype)
+            if scales is not None:           # int8: quantize per row
+                q8, s = quantize_page_rows(pages)
+                pool[:, idx] = q8
+                scales[:, idx] = s
+            else:
+                pool[:, idx] = _pool_cast(pages, pool.dtype)
     row = torch.full_like(paged["page_table"][slot], PAGED_NULL_PAGE)
     row[:npg] = page_ids.to(row.dtype)
     paged["page_table"][slot] = row
@@ -201,8 +248,9 @@ class DecoderLM:
         x = embed_tokens(cfg, params["embed"], tokens.long(), pos[:, None],
                          self.compute_dtype)
         for i, p in enumerate(self._blocks(params)):
-            x = _block_decode_paged(cfg, p, x, entry["kp"][i],
-                                    entry["vp"][i], pos, page_table)
+            x = _block_decode_paged(cfg, p, x,
+                                    {k: v[i] for k, v in entry.items()}, pos,
+                                    page_table)
         cache["pos"] = pos + cache["active"].to(pos.dtype)
         x = apply_norm(cfg, params["final_norm"], x)
         return lm_logits(cfg, params["embed"], x), cache

@@ -11,10 +11,11 @@ reference's `repro/serve/paged.py`, plain path).
     a prompt once and scatters its KV rows into fresh pages, and decode
     advances every slot `chunk_steps` tokens per host round trip.
 
-Ported: plain admission, the decode chunk and `occupancy_bundle`. Not yet
-ported (the batcher raises `NotImplementedError`): prefix caching, chunked
-prefill, speculative decoding, quantized page pools, priority preemption,
-telemetry and the energy meter.
+Ported: plain admission, the decode chunk, `occupancy_bundle`, quantized
+page pools (`kv_dtype` native/fp32/bf16/fp16/int8/fp8, pages priced by
+`page_bytes` with int8's scales) and `collect_logits`. Not yet ported (the
+batcher raises `NotImplementedError`): prefix caching, chunked prefill,
+speculative decoding, priority preemption, telemetry and the energy meter.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.quant import kv_dtype_spec
 from repro_torch.models.transformer import (init_paged_cache,
                                             write_prefill_to_pages)
 from repro_torch.serve.scheduler import AdmissionQueue, Request, SchedulerStats
@@ -35,11 +37,18 @@ class OutOfPages(RuntimeError):
     """The page pool cannot cover a request's worst-case page demand."""
 
 
-def page_bytes(cfg, page_size: int, kv_dtype_bytes: int = 2) -> int:
-    """Bytes one KV page pins across all full-attention layers (K + V), at
-    the native element size (quantization scales are not ported)."""
+def page_bytes(cfg, page_size: int, kv_dtype_bytes: int = 2,
+               scale_bytes_per_row: int = 0) -> int:
+    """Bytes one KV page pins across all full-attention layers (K + V).
+
+    `scale_bytes_per_row` adds the per-(token row, KV head) quantization
+    scale (4 for int8's float32 per-row scales, 0 for float and scale-free
+    fp8 pools), so quantized ledgers account the true physical footprint."""
     n_full = sum(1 for k in cfg.layer_kinds() if k == "full")
-    return n_full * 2 * page_size * cfg.kv_dim * kv_dtype_bytes
+    b = n_full * 2 * page_size * cfg.kv_dim * kv_dtype_bytes
+    if scale_bytes_per_row:
+        b += n_full * 2 * page_size * cfg.num_kv_heads * scale_bytes_per_row
+    return b
 
 
 def pages_for(tokens: int, page_size: int) -> int:
@@ -140,6 +149,12 @@ class PagedContinuousBatcher:
     device, and the host syncs once per chunk to collect tokens, retire
     finished slots, free their pages and admit queued requests.
 
+    `kv_dtype` selects the page storage (`kernels.quant.kv_dtype_spec`):
+    the model dtype ("native"), another float dtype, fp8 E4M3 codes, or
+    int8 with per-row scales, decoded through `paged_gqa_decode_quant`.
+    With `collect_logits` every request also keeps the last-position logits
+    of its prefill and of each decode step (`Request.logits`, float32).
+
     Emits the Stage-I artifact at page granularity: `occupancy_bundle()` is
     a `TraceBundle` whose "kv" trace steps in units of `page_bytes`, fed to
     `core.explorer.sweep` unchanged. Times on it are logical (`step_time_s`
@@ -152,14 +167,18 @@ class PagedContinuousBatcher:
                  max_pages_per_slot: Optional[int] = None,
                  chunk_steps: int = 16, step_time_s: float = 1e-3,
                  prefill_tok_s: float = 5e-5, prefix_cache: bool = False,
-                 kv_dtype: str = "native",
+                 collect_logits: bool = False, kv_dtype: str = "native",
                  prefill_chunk_tokens: Optional[int] = None,
                  speculate_k: Optional[int] = None):
+        if speculate_k is not None and kv_dtype == "int8":
+            raise NotImplementedError(
+                "speculative verify scatters V rows per slot; the int8 "
+                "page pool's per-row requantization under that scatter "
+                "is not wired up (fp8/native pools are)")
         for name, value, plain in (
                 ("prefix_cache", prefix_cache, False),
                 ("prefill_chunk_tokens", prefill_chunk_tokens, None),
-                ("speculate_k", speculate_k, None),
-                ("kv_dtype", kv_dtype, "native")):
+                ("speculate_k", speculate_k, None)):
             if value != plain:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported yet; the port serves "
@@ -177,8 +196,11 @@ class PagedContinuousBatcher:
         self.step_time_s = step_time_s
         self.prefill_tok_s = prefill_tok_s
 
-        itemsize = torch.empty((), dtype=model.compute_dtype).element_size()
-        self.page_bytes = page_bytes(self.cfg, page_size, itemsize)
+        self.collect_logits = collect_logits
+        kv_spec = kv_dtype_spec(kv_dtype, native=model.compute_dtype)
+        self.kv_dtype = kv_spec.name
+        self.page_bytes = page_bytes(self.cfg, page_size, kv_spec.itemsize,
+                                     kv_spec.scale_bytes_per_row)
         self.row_bytes = self.page_bytes // page_size
         self.ledger = PagedKVLedger(num_pages, self.page_bytes)
         self.access = AccessStats()
@@ -194,7 +216,7 @@ class PagedContinuousBatcher:
         self._cache = init_paged_cache(
             self.cfg, num_slots, num_pages, page_size,
             self.max_pages_per_slot, dtype=model.compute_dtype,
-            device=self.device)
+            device=self.device, kv_dtype=self.kv_dtype)
 
     # ------------------------------------------------------------ client API
     def submit(self, req: Request) -> None:
@@ -278,12 +300,12 @@ class PagedContinuousBatcher:
             self.access.add_write("kv", prompt_len * self.row_bytes)
             write_prefill_to_pages(self.cfg, self._cache, dense, i,
                                    torch.as_tensor(pages, dtype=torch.int32))
-            self._commit_admission(i, req, done, tok, prompt_len, pages,
-                                   t_pre)
+            self._commit_admission(i, req, done, tok, logits, prompt_len,
+                                   pages, t_pre)
 
     def _commit_admission(self, i: int, req: Request, done: List[Request],
-                          tok: int, ctx: int, table_pages: List[int],
-                          t_pre: float) -> None:
+                          tok: int, logits: torch.Tensor, ctx: int,
+                          table_pages: List[int], t_pre: float) -> None:
         """Host mirrors, stats, the prefill-produced first token, and the
         immediate retire when that token already satisfies the request."""
         self.slots[i] = req
@@ -292,6 +314,8 @@ class PagedContinuousBatcher:
         self._table[i, :] = 0
         self._table[i, :len(table_pages)] = table_pages
         req.output.append(tok)
+        if self.collect_logits:
+            req.logits.append(logits[0, -1].float().cpu().numpy())
         self.stats.admitted += 1
         self.stats.prefills += 1
         self.stats.peak_active_slots = max(
@@ -302,19 +326,24 @@ class PagedContinuousBatcher:
             self._retire(i, req, done, self._sim_t)
 
     def _decode_loop(self, tok: torch.Tensor, eos: torch.Tensor,
-                     remaining: torch.Tensor) -> torch.Tensor:
+                     remaining: torch.Tensor):
         """Greedy `chunk_steps`-token decode for every slot, all on the
         device. Slots retire in-loop (EOS or token budget) through the
         cache's `active` mask; inactive lanes emit -1 and stop advancing.
         Returns one (chunk_steps + 2, num_slots) tensor: the emitted tokens,
         then the next input token and the liveness mask, so the host reads
-        the chunk with a single copy."""
+        the chunk with a single copy; with `collect_logits`, also each
+        step's last-position logits (chunk_steps, num_slots, V), else
+        None."""
         cache = self._cache
         emitted = torch.empty((self.chunk_steps, self.num_slots),
                               dtype=torch.long, device=self.device)
+        step_logits = []
         for s in range(self.chunk_steps):
             logits, cache = self.model.decode_step_paged(self.params, cache,
                                                          tok)
+            if self.collect_logits:
+                step_logits.append(logits[:, -1, :].float())
             active = cache["active"]
             # torch.argmax, like jnp.argmax, returns the first maximal index
             nxt = torch.argmax(logits[:, -1, :], dim=-1)
@@ -323,8 +352,9 @@ class PagedContinuousBatcher:
             done = active & ((remaining <= 0) | ((eos >= 0) & (nxt == eos)))
             cache["active"] = active & ~done
             tok = torch.where(active[:, None], nxt[:, None], tok)
-        return torch.cat([emitted, tok[:, 0][None],
-                          cache["active"].long()[None]])
+        out = torch.cat([emitted, tok[:, 0][None],
+                         cache["active"].long()[None]])
+        return out, (torch.stack(step_logits) if step_logits else None)
 
     def _decode_chunk(self, done: List[Request]) -> None:
         live = [i for i, s in enumerate(self.slots) if s is not None]
@@ -358,10 +388,13 @@ class PagedContinuousBatcher:
         eos = [self.slots[i].eos_id if self.slots[i] is not None
                and self.slots[i].eos_id is not None else -1
                for i in range(self.num_slots)]
-        out = self._decode_loop(
+        out, step_logits = self._decode_loop(
             torch.as_tensor(self._next_tok[:, None], device=dev),
             torch.as_tensor(eos, dtype=torch.long, device=dev),
-            torch.as_tensor(remaining, device=dev)).cpu().numpy()
+            torch.as_tensor(remaining, device=dev))
+        out = out.cpu().numpy()
+        if step_logits is not None:
+            step_logits = step_logits.cpu().numpy()
         emitted = out[:self.chunk_steps]
         self._next_tok = out[self.chunk_steps].copy()
         still_active = out[self.chunk_steps + 1].astype(bool)
@@ -374,6 +407,8 @@ class PagedContinuousBatcher:
             neg = np.nonzero(col < 0)[0]
             g = int(neg[0]) if len(neg) else len(col)
             req.output.extend(int(t) for t in col[:g])
+            if step_logits is not None:
+                req.logits.extend(step_logits[:g, i])
             self.stats.decode_steps += g
             # page-granular access accounting: each step streams the resident
             # pages and appends one row

@@ -22,6 +22,9 @@ class Request:
     priority: int = 0
     # filled by the scheduler
     output: List[int] = field(default_factory=list)
+    # per-token last-position logits, filled only by batchers running with
+    # collect_logits=True
+    logits: List[np.ndarray] = field(default_factory=list)
     # lifecycle stamps on both clocks: `submitted_s`/`finished_s` are on the
     # engine's logical sim clock (the time base of the occupancy trace);
     # `*_wall_s` are time.perf_counter stamps for host-side profiling

@@ -163,3 +163,69 @@ def test_kernels_match_plain_versions_on_card():
     got, want = bank_activity_stats(d, o, u, nb), bank_energy_ref(d, o, u, nb)
     assert torch.equal(got[:, 1], want[:, 1])
     assert math.isclose(float((got - want).abs().max()), 0.0, abs_tol=1e-6)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_on_fp8_and_mixed_pools_on_card():
+    """Kernel 1 on the pools the quantized and mixed paths give it: fp8
+    E4M3 codes, and float32 / float16 pools under a bfloat16 query."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.quant import to_fp8_codes
+    q, kp, vp, table, lens = (torch.from_numpy(x).to("cuda") for x in
+                              _paged_case(3, 12, 2, d=128, ps=16, N=40, P=5,
+                                          lengths=(1, 65, 80, 17)))
+    for qd, tol in ((torch.float32, ATOL), (torch.bfloat16, 1e-2)):
+        for pools in ((to_fp8_codes(kp), to_fp8_codes(vp)),
+                      (kp, vp), (kp.half(), vp.half())):
+            got = paged_gqa_decode(q.to(qd), *pools, table, lens)
+            want = paged_gqa_decode_ref(q, *pools, table, lens)
+            assert got.dtype == qd
+            assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_quant_decode_kernel_matches_plain_versions_on_card():
+    """Kernel 5 on int8 pools with per-row scales, against the page-by-page
+    mirror and the vectorised plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_gqa_decode import (
+        paged_gqa_decode_quant, paged_gqa_decode_quant_mirror_ref,
+        paged_gqa_decode_quant_ref)
+    from repro_torch.kernels.quant import quantize_page_rows
+    for H, K, d in [(12, 2, 128), (25, 25, 64), (4, 4, 16)]:
+        q, kf, vf, table, lens = (torch.from_numpy(x).to("cuda") for x in
+                                  _paged_case(H, H, K, d=d, ps=16, N=40, P=5,
+                                              lengths=(1, 65, 80, 17)))
+        (kp, ks), (vp, vs) = quantize_page_rows(kf), quantize_page_rows(vf)
+        for qd, tol in ((torch.float32, ATOL), (torch.bfloat16, 1e-2)):
+            args = (kp, vp, ks, vs, table, lens)
+            got = paged_gqa_decode_quant(q.to(qd), *args).float()
+            for ref in (paged_gqa_decode_quant_mirror_ref,
+                        paged_gqa_decode_quant_ref):
+                assert (got - ref(q, *args)).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_int8_matmul_kernel_matches_plain_version_on_card():
+    """Kernel 8: int32 accumulators exactly equal, the scaled output bit
+    for bit, on ragged shapes (M, N, K not multiples of the tiles)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_acc,
+                                                 int8_matmul_acc_ref,
+                                                 int8_matmul_ref)
+    rng = np.random.default_rng(4)
+    for M, K, N in [(499, 96, 200), (7, 41, 9), (128, 1536, 256),
+                    (64, 8960, 64)]:
+        x = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+        w = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+        x[0], w[:, 0] = 127, -127
+        sx = torch.from_numpy(rng.uniform(1e-4, 1, (M, 1)).astype(np.float32))
+        sw = torch.from_numpy(rng.uniform(1e-4, 1, (1, N)).astype(np.float32))
+        x, w, sx, sw = (t.to("cuda") for t in (x, w, sx, sw))
+        assert torch.equal(int8_matmul_acc(x, w), int8_matmul_acc_ref(x, w))
+        assert torch.equal(int8_matmul(x, w, sx, sw),
+                           int8_matmul_ref(x, w, sx, sw))

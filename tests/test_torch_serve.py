@@ -100,9 +100,14 @@ def test_unported_options_raise():
     cfg = tconfigs.reduced(tconfigs.get_arch("gpt2-xl"), layers=2)
     m = DecoderLM(cfg, compute_dtype=torch.float32, device="cpu")
     for kw in (dict(prefix_cache=True), dict(prefill_chunk_tokens=8),
-               dict(speculate_k=2), dict(kv_dtype="int8")):
+               dict(speculate_k=2), dict(speculate_k=2, kv_dtype="int8")):
         with pytest.raises(NotImplementedError):
             PagedContinuousBatcher(m, {}, **kw, **GEOMETRY)
+    with pytest.raises(NotImplementedError, match="int8"):
+        PagedContinuousBatcher(m, {}, speculate_k=2, kv_dtype="int8",
+                               **GEOMETRY)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        PagedContinuousBatcher(m, {}, kv_dtype="int4", **GEOMETRY)
     tb = PagedContinuousBatcher(m, {}, **GEOMETRY)
     with pytest.raises(NotImplementedError):
         tb.submit(Request(rid=0, tokens=np.arange(4), priority=1))
