@@ -4,7 +4,11 @@ Drives the port's paths: paged serving of full-width dsr1d-qwen-1.5b
 (random bf16 weights from a seeded generator) with native bf16 pages, then
 the Stage-II (C, B) sweep over the serving trace; the same stream with int8
 and with fp8 KV pages, each trace gated at the bf16 run's peak capacity;
-and the int8 SwiGLU FFN of layer 0 through the int8 matmul. It builds the
+the int8 SwiGLU FFN of layer 0 through the int8 matmul; the same stream
+again with speculative decoding (k = 3, the skip-2 self-spec draft), whose
+target verifies each round through the paged verify kernel; and dense
+serving (`BatchedServer`, `ContinuousBatcher`) through the dense GQA decode
+kernel. It builds the
 CUDA kernels from `src/repro_torch/csrc/` first, holds every kernel against
 its plain PyTorch version at its path's shapes, and checks that each path
 launched its kernels (launch counts are set to 0 just before a path and
@@ -49,6 +53,8 @@ REPLACES = {
     "paged_gqa_decode_quant":
         "src/repro/kernels/paged_gqa_decode/kernel.py:118",
     "int8_matmul": "src/repro/kernels/int8_matmul/kernel.py:41",
+    "paged_gqa_verify": "src/repro/kernels/paged_gqa_verify/kernel.py:77",
+    "gqa_decode": "src/repro/kernels/gqa_decode/kernel.py:66",
 }
 SOURCE = {
     "paged_gqa_decode": "src/repro_torch/csrc/paged_gqa_decode.cu",
@@ -57,6 +63,8 @@ SOURCE = {
     "bank_energy": "src/repro_torch/csrc/bank_energy.cu",
     "paged_gqa_decode_quant": "src/repro_torch/csrc/paged_gqa_decode.cu",
     "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
+    "paged_gqa_verify": "src/repro_torch/csrc/paged_gqa_verify.cu",
+    "gqa_decode": "src/repro_torch/csrc/gqa_decode.cu",
 }
 # the kernels of the bf16 main path (serve + sweep)
 MAIN_PATH_KERNELS = ("paged_gqa_decode", "flash_attention",
@@ -64,6 +72,12 @@ MAIN_PATH_KERNELS = ("paged_gqa_decode", "flash_attention",
 KV_DTYPES = ("native", "int8", "fp8")
 # full-width dsr1d SwiGLU: M = the serve's longest prompt, D 1536, F 8960
 FFN_SHAPES = ((1536, 8960), (8960, 1536))
+# speculative serving: drafted tokens per round, self-spec layer skip
+SPEC_K, SPEC_SKIP = 3, 2
+# dense serving: BatchedServer batch x prompt -> new tokens; ContinuousBatcher
+# requests (the serve's first prompts) and cache length
+DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 8, 128, 32
+DENSE_REQUESTS, DENSE_MAX_LEN = 4, 640
 
 
 def emit(phase: str, **fields) -> None:
@@ -232,7 +246,111 @@ def kernel_phase(gen) -> dict:
 
     rows["int8_matmul"] = [int8_mm_row(gen, int(lengths.max()), k, n)
                            for k, n in FFN_SHAPES]
+
+    # speculative verify at the spec serve's shapes: V = k + 1 window rows
+    # over the same mid-decode contexts
+    from repro_torch.kernels.quant import to_fp8_codes
+    V = SPEC_K + 1
+    for tag, c, dtype, pools in ((ARCH, cfg, torch.bfloat16, "bfloat16"),
+                                 (ARCH, cfg, torch.bfloat16, "fp8"),
+                                 (ARCH, cfg, torch.float32, "float32"),
+                                 ("gpt2-xl", gpt2, torch.float32, "float32")):
+        q, kp, vp, table, lens = decode_case(
+            gen, SLOTS, c.num_heads, c.num_kv_heads, c.head_dim,
+            dec_lens + V, torch.float32, num_pages)
+        q = torch.randn((SLOTS, V, c.num_heads, c.head_dim), generator=gen,
+                        device="cuda").to(dtype)
+        if pools == "fp8":
+            kp, vp = to_fp8_codes(kp), to_fp8_codes(vp)
+        else:
+            kp, vp = kp.to(dtype), vp.to(dtype)
+        base = (lens - V).clamp(min=0)
+        rows.setdefault("paged_gqa_verify", []).append(verify_row(
+            f"{tag} pools {pools}", c, (q, kp, vp, table, base)))
+
+    # dense decode at the dense serve's cache length, through the
+    # (B, K, T, d) view of a (B, T, K, d) cache, as the decode step passes it
+    dense_lens = np.r_[lengths[:SLOTS - 1] + NEW_TOKENS // 2, DENSE_MAX_LEN]
+    for tag, c, dtype in ((ARCH, cfg, torch.bfloat16),
+                          (ARCH, cfg, torch.float32),
+                          ("gpt2-xl", gpt2, torch.float32)):
+        rows.setdefault("gqa_decode", []).append(
+            dense_row(gen, tag, c, dense_lens, dtype))
     return rows
+
+
+def verify_row(tag, c, args) -> dict:
+    """The verify kernel against its plain version (on a float32 copy of q)
+    at one case, and each window row against the decode kernel at base +
+    v + 1, which computes the same operations (0 expected)."""
+    from repro_torch.kernels.paged_gqa_decode import paged_gqa_decode
+    from repro_torch.kernels.paged_gqa_verify import (paged_gqa_verify,
+                                                      paged_gqa_verify_ref)
+    q, kp, vp, table, base = args
+    V = q.shape[1]
+    out = paged_gqa_verify(*args)
+    want = paged_gqa_verify_ref(q.float(), *args[1:])
+    rows_vs_decode = max(max_err(out[:, v], paged_gqa_decode(
+        q[:, v], kp, vp, table, base + v + 1)) for v in range(V))
+    torch.cuda.synchronize()
+    err = max_err(out, want)
+    check(bool(torch.isfinite(out.float()).all()), f"verify {tag} finite")
+    check(err <= TOL[q.dtype], f"paged verify {tag} {q.dtype}: {err}")
+    check(rows_vs_decode <= TOL[q.dtype],
+          f"paged verify {tag}: window rows vs decode {rows_vs_decode}")
+    # each slot reads its context plus the window once; window row v scores
+    # base + v + 1 rows
+    K, d, H = c.num_kv_heads, c.head_dim, c.num_heads
+    read_rows = int((base + V).sum())
+    scored = int((base[:, None] + torch.arange(1, V + 1, device="cuda")
+                  ).sum())
+    nbytes = (2 * q.numel() * q.element_size() + table.numel() * 4
+              + base.numel() * 4 + 2 * read_rows * K * d * kp.element_size())
+    b_ms, b_by = bound(nbytes, 4.0 * scored * H * d, q.dtype)
+    return dict(shape=f"B{SLOTS} V{V} H{H} K{K} d{d} ps{PAGE_SIZE} "
+                f"ctx{read_rows}", arch=tag, dtype=str(q.dtype),
+                max_abs_err=err, tolerance=TOL[q.dtype],
+                max_abs_err_rows_vs_decode=rows_vs_decode,
+                ms=cuda_ms(lambda: paged_gqa_verify(*args)),
+                plain_ms=cuda_ms(lambda: paged_gqa_verify_ref(*args), reps=5),
+                bound_ms=b_ms, bound_by=b_by,
+                # a page gather plus SDPA is not one call
+                library_ms=None)
+
+
+def dense_row(gen, tag, c, lengths, dtype) -> dict:
+    """The dense decode kernel against its plain version on a (B, T, K, d)
+    cache seen as (B, K, T, d); the library yardstick is one SDPA call with
+    the lengths mask and the KV heads shared by the group."""
+    from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
+    B, T = len(lengths), DENSE_MAX_LEN
+    H, K, d = c.num_heads, c.num_kv_heads, c.head_dim
+    q = torch.randn((B, H, d), generator=gen, device="cuda").to(dtype)
+    kc, vc = (torch.randn((B, T, K, d), generator=gen, device="cuda").to(
+        dtype).transpose(1, 2) for _ in range(2))
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    out = gqa_decode(q, kc, vc, lens)
+    want = gqa_decode_ref(q.float(), kc, vc, lens)
+    torch.cuda.synchronize()
+    err = max_err(out, want)
+    check(bool(torch.isfinite(out.float()).all()), f"dense {tag} finite")
+    check(err <= TOL[dtype], f"gqa_decode {tag} {dtype}: {err}")
+    ctx = int(lens.clamp(max=T).sum())
+    nbytes = (2 * q.numel() * q.element_size() + lens.numel() * 4
+              + 2 * ctx * K * d * q.element_size())
+    b_ms, b_by = bound(nbytes, 4.0 * ctx * H * d, dtype)
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    qs = q[:, :, None, :]
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kc, vc, attn_mask=mask, enable_gqa=True))
+    return dict(shape=f"B{B} T{T} H{H} K{K} d{d} ctx{ctx} (B,T,K,d) view",
+                arch=tag, dtype=str(dtype), max_abs_err=err,
+                tolerance=TOL[dtype],
+                ms=cuda_ms(lambda: gqa_decode(q, kc, vc, lens)),
+                plain_ms=cuda_ms(lambda: gqa_decode_ref(q, kc, vc, lens),
+                                 reps=5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
 
 
 def decode_row(tag, c, fn, ref, args, lens, pool_isz, scale_bytes=0):
@@ -352,6 +470,126 @@ def synthetic_trace(S: int, C: int):
     return d, o, usable, cb[:, 1], threshold
 
 
+# ------------------------------------------------ speculative and dense paths
+def reference_spec_dense() -> dict:
+    """The reduced dsr1d model with 4 layers, float32, on the card and on the
+    CPU plain path: speculative serving (k = 2, skip-2 draft) gives equal
+    greedy tokens, `PagedStats` spec counters and sweep rows; dense
+    `ContinuousBatcher` and `BatchedServer` give equal greedy tokens."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.explorer import sweep
+    from repro_torch.examples.quant_serving import serve_stream
+    from repro_torch.models import DecoderLM
+    from repro_torch.params import init_params
+    from repro_torch.serve import (BatchedServer, ContinuousBatcher, Request,
+                                   ServeConfig)
+    small = reduced(get_arch(ARCH), layers=4)
+    cpu_params = init_params(small, torch.Generator().manual_seed(SEED + 4),
+                             device="cpu")
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, small.vocab_size, int(n))
+               for n in rng.integers(5, 40, 5)]
+    got = {}
+    for dev, p in (("cuda", _to(cpu_params, "cuda")), ("cpu", cpu_params)):
+        m = DecoderLM(small, torch.float32, dev)
+        cb, done = serve_stream(m, p, prompts, "native", 14, num_slots=3,
+                                page_size=8, num_pages=64,
+                                max_pages_per_slot=8, chunk_steps=6,
+                                speculate_k=2)
+        st = cb.stats
+        tab = sweep(cb.occupancy_bundle(), mem_name="kv",
+                    capacities_mib=[1, 2], banks=[1, 2, 4], device=dev,
+                    prune=True)
+        dense = ContinuousBatcher(m, p, num_slots=2, max_len=48)
+        for i, pr in enumerate(prompts):
+            dense.submit(Request(rid=i, tokens=pr, max_new_tokens=10))
+        batch = np.stack([pr[:5] for pr in prompts])
+        srv = BatchedServer(m, p, ServeConfig(max_len=24, max_new_tokens=8))
+        got[dev] = dict(
+            spec_tokens=[r.output for r in done],
+            spec_counters=(st.spec_rounds, st.drafted_tokens,
+                           st.accepted_tokens, st.rolled_back_pages),
+            spec_sweep=[(r.capacity_mib, r.banks) for r in tab.rows],
+            dense_tokens=[r.output for r in sorted(dense.run(),
+                                                   key=lambda r: r.rid)],
+            server_tokens=srv.generate({"tokens": batch})["tokens"].tolist())
+    for key in got["cpu"]:
+        check(got["cuda"][key] == got["cpu"][key],
+              f"reduced-model {key} on the card == CPU plain path")
+    spec = got["cuda"]["spec_counters"]
+    check(spec[3] > 0, "the reduced spec run rolled pages back")
+    return dict(spec_k=2, spec_layers=small.num_layers,
+                spec_counters_equal=True, spec_rounds=spec[0],
+                spec_accepted=spec[2], spec_rolled_back_pages=spec[3],
+                spec_sweep_rows=len(got["cuda"]["spec_sweep"]),
+                dense_tokens_equal=True, server_tokens_equal=True)
+
+
+def serve_dense(model, params, prompts) -> dict:
+    """Full-width dense serving: `BatchedServer` over a batch of seeded
+    prompts, then `ContinuousBatcher` over the serve's first prompts, each
+    with launch counts set to 0 just before and read just after; every
+    decode step of every layer must launch the dense decode kernel once."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import (BatchedServer, ContinuousBatcher, Request,
+                                   ServeConfig)
+    cfg = model.cfg
+    L = cfg.num_layers
+    batch = np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT))
+    srv = BatchedServer(model, params, ServeConfig(
+        max_len=DENSE_PROMPT + DENSE_NEW, max_new_tokens=DENSE_NEW))
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = srv.generate({"tokens": batch})
+    torch.cuda.synchronize()
+    server_s = time.perf_counter() - t0
+    server_launches = build.launch_counts()["gqa_decode"]
+    toks = res["tokens"]
+    check(toks.shape == (DENSE_BATCH, DENSE_NEW)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "BatchedServer: in-vocab tokens of the expected shape")
+    check(server_launches == L * (DENSE_NEW - 1),
+          f"BatchedServer: gqa_decode launches {server_launches} == layers x "
+          f"steps {L * (DENSE_NEW - 1)}")
+
+    cb = ContinuousBatcher(model, params, num_slots=DENSE_REQUESTS,
+                           max_len=DENSE_MAX_LEN)
+    for i, p in enumerate(prompts[:DENSE_REQUESTS]):
+        cb.submit(Request(rid=i, tokens=p, max_new_tokens=DENSE_NEW))
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = cb.run()
+    torch.cuda.synchronize()
+    batcher_s = time.perf_counter() - t0
+    batcher_launches = build.launch_counts()["gqa_decode"]
+    st = cb.stats
+    check(st.finished == DENSE_REQUESTS
+          and all(len(r.output) == DENSE_NEW for r in done),
+          "ContinuousBatcher: every request finished with its tokens")
+    check(batcher_launches == L * st.decode_steps,
+          f"ContinuousBatcher: gqa_decode launches {batcher_launches} == "
+          f"layers x decode steps {L * st.decode_steps}")
+    check(int(cb.trace.as_arrays()[1][-1]) == 0,
+          "ContinuousBatcher: the trace drains to 0")
+    return dict(
+        server=dict(batch=DENSE_BATCH, prompt=DENSE_PROMPT, new=DENSE_NEW,
+                    prefill_s=res["stats"].prefill_s,
+                    decode_s=res["stats"].decode_s,
+                    decode_tokens_per_s=res["stats"].decode_tokens_per_s,
+                    wall_s=server_s, gqa_decode_launches=server_launches),
+        batcher=dict(requests=DENSE_REQUESTS, max_len=DENSE_MAX_LEN,
+                     new=DENSE_NEW, decode_steps=st.decode_steps,
+                     wall_s=batcher_s,
+                     # wall time of the whole run, admission prefills included
+                     decode_tokens_per_s=st.decode_steps / batcher_s,
+                     peak_kv_bytes=cb.trace.peak_needed(),
+                     gqa_decode_launches=batcher_launches),
+        launches=server_launches + batcher_launches)
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     if not torch.cuda.is_available():
@@ -420,8 +658,10 @@ def main() -> None:
               f"reduced-model sweep rows with {kv} pages on the card == CPU "
               "plain path")
         sweep_rows[kv] = len(served["cuda"][1])
+    spec_dense = reference_spec_dense()
     emit("reference", arch=small.name, requests=len(prompts),
-         kv_dtypes=list(KV_DTYPES), tokens_equal=True, sweep_rows=sweep_rows)
+         kv_dtypes=list(KV_DTYPES), tokens_equal=True, sweep_rows=sweep_rows,
+         **spec_dense)
 
     # ---- serve: the main path at full width, launch counts from 0 ----
     cfg = get_arch(ARCH)
@@ -581,9 +821,82 @@ def main() -> None:
          rel_l2_vs_cpu_plain=rel_plain, wall_s=ffn_s,
          launches=launches["int8_matmul"])
 
+    # ---- serve_spec: the same stream, speculative (k = 3, skip-2 draft) ----
+    scb, sdone, spec_s, spec_counts = serve_full(model, params, prompts,
+                                                 "native", speculate_k=SPEC_K)
+    sst = scb.stats
+    rounds = sst.chunks * scb.spec_rounds_per_chunk   # every round runs
+    draft_layers = scb.draft_model.cfg.num_layers
+    check(sst.accepted_tokens == sst.decode_steps,
+          f"spec: accepted tokens {sst.accepted_tokens} == decode tokens "
+          f"{sst.decode_steps}")
+    check(sst.drafted_tokens == sst.spec_rounds * SPEC_K,
+          "spec: drafted tokens == spec rounds x k")
+    check(scb.ledger.allocator.n_allocated == 0
+          and int(scb.ledger.trace.as_arrays()[1][-1]) == 0,
+          "spec: the allocator drains to 0 and the trace integrates to 0")
+    check(spec_counts["paged_gqa_verify"] == cfg.num_layers * rounds,
+          f"spec: paged_gqa_verify launches {spec_counts['paged_gqa_verify']}"
+          f" == layers x rounds {cfg.num_layers * rounds}")
+    check(spec_counts["paged_gqa_decode"]
+          == draft_layers * (SPEC_K + 1) * rounds,
+          f"spec: draft paged_gqa_decode launches "
+          f"{spec_counts['paged_gqa_decode']} == draft layers x (k + 1) x "
+          f"rounds {draft_layers * (SPEC_K + 1) * rounds}")
+    launches["paged_gqa_verify"] = spec_counts["paged_gqa_verify"]
+    spec_bundle = scb.occupancy_bundle()
+    spec_trace = spec_bundle.traces["kv"]
+    ev = np.asarray(spec_trace.ev_dneeded)
+    spec_energy = gate_at_capacity({"native": bundle, "spec": spec_bundle},
+                                   cap, device="cuda")
+    sm = min_capacity_mib(spec_trace.peak_needed())
+    spec_sweep_kw = dict(sweep_kw, capacities_mib=[sm, sm + 32, sm + 64])
+    spec_table = sweep(spec_bundle, device="cuda", **spec_sweep_kw)
+    spec_plain = sweep(spec_bundle, device="cpu", **spec_sweep_kw)
+    check([(r.capacity_mib, r.banks) for r in spec_table.rows]
+          == [(r.capacity_mib, r.banks) for r in spec_plain.rows],
+          "spec sweep rows equal the plain-version sweep")
+    emit("serve_spec", speculate_k=SPEC_K, draft=scb.draft_model.cfg.name,
+         draft_layers=draft_layers, dtype="bfloat16",
+         requests_finished=sst.finished, decode_tokens=sst.decode_steps,
+         chunks=sst.chunks, rounds_run=rounds, spec_rounds=sst.spec_rounds,
+         drafted_tokens=sst.drafted_tokens,
+         accepted_tokens=sst.accepted_tokens,
+         # tokens per slot-round (1 .. k + 1) and accepted drafts / drafted
+         tokens_per_round=sst.accepted_tokens / max(sst.spec_rounds, 1),
+         draft_acceptance=(sst.accepted_tokens - sst.spec_rounds)
+         / max(sst.drafted_tokens, 1),
+         rolled_back_pages=sst.rolled_back_pages,
+         # negative deltas besides each retire's two (target and draft lane)
+         negative_midstream_deltas=int((ev < 0).sum()) - 2 * sst.finished,
+         peak_pages=sst.peak_pages, peak_kv_bytes=spec_trace.peak_needed(),
+         wall_s=spec_s, decode_tokens_per_s=sst.decode_steps / spec_s,
+         first_divergence_from_bf16=[first_divergence(a.output, b.output)
+                                     for a, b in zip(sdone, done)],
+         stage2_at_bf16_peak=dict(
+             capacity_bytes=cap, banks=8,
+             e_total_j={k: float(v.e_total[0])
+                        for k, v in spec_energy.items()}),
+         sweep_rows=len(spec_table.rows), launches=spec_counts)
+
+    # ---- serve_dense: BatchedServer and ContinuousBatcher ----
+    dense = serve_dense(model, params, prompts)
+    launches["gqa_decode"] = dense.pop("launches")
+    emit("serve_dense", arch=cfg.name, dtype="bfloat16", **dense)
+
     kernels = []
-    for name in ("paged_gqa_decode", "flash_attention"):
-        row = rows[name][0]            # the main path's dtype (bfloat16)
+    for name, row in (("paged_gqa_decode", rows["paged_gqa_decode"][0]),
+                      ("flash_attention", rows["flash_attention"][0]),
+                      ("paged_gqa_decode_quant",
+                       rows["paged_gqa_decode_quant"][0]),
+                      ("int8_matmul", rows["int8_matmul"][0]),
+                      ("exact_bank_stats",
+                       dict(bank_main["exact_bank_stats"], dtype="float64")),
+                      ("bank_energy",
+                       dict(bank_main["bank_energy"], dtype="float64")),
+                      ("paged_gqa_verify", rows["paged_gqa_verify"][0]),
+                      ("gqa_decode", rows["gqa_decode"][0])):
+        # rows[...][0] is the main path's dtype (bfloat16)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name],
             replaces=REPLACES[name], launches=launches[name],
@@ -591,24 +904,6 @@ def main() -> None:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"], dtype=row["dtype"]))
-    for name in ("paged_gqa_decode_quant", "int8_matmul"):
-        row = rows[name][0]
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCE[name],
-            replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"],
-            shape=row["shape"], dtype=row["dtype"]))
-    for name in ("exact_bank_stats", "bank_energy"):
-        row = bank_main[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCE[name],
-            replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None,
-            shape=row["shape"], dtype="float64"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -623,20 +918,25 @@ def first_divergence(a, b) -> int:
                 min(len(a), len(b)))
 
 
-def serve_full(model, params, prompts, kv_dtype: str):
-    """The full-width stream through one batcher with `kv_dtype` pages,
+def serve_full(model, params, prompts, kv_dtype: str,
+               speculate_k=None):
+    """The full-width stream through one batcher with `kv_dtype` pages (and
+    speculation when `speculate_k` is set: the pool then holds both lanes),
     launch counts set to 0 just before and read just after. Checks that
     every request finished with NEW_TOKENS in-vocab tokens and that each
-    admission ran the prefill kernel once per layer. Returns (batcher,
-    finished requests by rid, wall seconds, launch counts)."""
+    admission ran the prefill kernel once per layer (of the draft too).
+    Returns (batcher, finished requests by rid, wall seconds, launch
+    counts)."""
     from repro_torch.kernels import build
     from repro_torch.serve import PagedContinuousBatcher, Request
     cfg = model.cfg
-    per_slot = -(-(PROMPT_MAX + NEW_TOKENS - 1) // PAGE_SIZE)
+    per_slot = -(-(PROMPT_MAX + NEW_TOKENS - 1 + (speculate_k or 0))
+                 // PAGE_SIZE)
+    lanes = 1 if speculate_k is None else 2
     cb = PagedContinuousBatcher(
         model, params, num_slots=SLOTS, page_size=PAGE_SIZE,
-        num_pages=SLOTS * per_slot + 1, max_pages_per_slot=per_slot,
-        chunk_steps=CHUNK_STEPS, kv_dtype=kv_dtype)
+        num_pages=lanes * SLOTS * per_slot + 1, max_pages_per_slot=per_slot,
+        chunk_steps=CHUNK_STEPS, kv_dtype=kv_dtype, speculate_k=speculate_k)
     for i, p in enumerate(prompts):
         cb.submit(Request(rid=i, tokens=p, max_new_tokens=NEW_TOKENS))
     build.reset_launch_counts()
@@ -647,14 +947,18 @@ def serve_full(model, params, prompts, kv_dtype: str):
     wall_s = time.perf_counter() - t0
     counts = build.launch_counts()
     st = cb.stats
+    tag = kv_dtype if speculate_k is None else f"{kv_dtype} spec"
     check(len(done) == len(prompts) and st.finished == len(prompts),
-          f"{kv_dtype}: all requests finished")
+          f"{tag}: all requests finished")
     check(all(len(r.output) == NEW_TOKENS
               and all(0 <= t < cfg.vocab_size for t in r.output)
               for r in done),
-          f"{kv_dtype}: every request has NEW_TOKENS in-vocab tokens")
-    check(counts["flash_attention"] == cfg.num_layers * st.prefills,
-          f"{kv_dtype}: prefill launches == layers x prefills")
+          f"{tag}: every request has NEW_TOKENS in-vocab tokens")
+    layers = cfg.num_layers
+    if speculate_k is not None:
+        layers += cb.draft_model.cfg.num_layers
+    check(counts["flash_attention"] == layers * st.prefills,
+          f"{tag}: prefill launches == layers x prefills")
     return cb, done, wall_s, counts
 
 

@@ -27,11 +27,12 @@ from typing import Dict, List, Optional, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # -split-compile=0 optimizes a source's kernels on all host threads, so the
-# many template instances of paged_gqa_decode.cu do not serialize the build
+# many template instances of the decode-attention sources do not serialize
+# the build
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-split-compile=0")
-SOURCES = ("bank_energy", "flash_attention", "int8_matmul",
-           "paged_gqa_decode")
+SOURCES = ("bank_energy", "flash_attention", "gqa_decode", "int8_matmul",
+           "paged_gqa_decode", "paged_gqa_verify")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -8,7 +8,9 @@ float32 or bfloat16 query; `paged_gqa_decode_quant` replaces
 `paged_gqa_decode_quant_kernel` (body `_paged_decode_quant_kernel`) for int8
 pools with per-row float32 scales. The paged decode step calls one of them
 for every token of every layer. Both launch from
-`csrc/paged_gqa_decode.cu`, as two kernels with their own launch counts."""
+`csrc/paged_gqa_decode.cu` (the kernel template is
+`csrc/decode_attention.cuh`), as two kernels with their own launch
+counts."""
 from __future__ import annotations
 
 import ctypes
@@ -40,9 +42,10 @@ QUANT_KERNEL = build.register(build.CudaKernel(
      _P]))
 
 
-def _check(name, q, k_pages, v_pages, page_table, lengths):
-    """Shapes, types and limits both kernels share; returns (B, H, K, d,
-    ps, P, N) and the int32 table and lengths."""
+def check_paged(name, q, k_pages, v_pages, page_table, lengths):
+    """Shapes, types and limits the paged kernels share (q: (B, H, d), one
+    window row); returns (B, H, K, d, ps, P, N) and the int32 table and
+    lengths."""
     B, H, d = q.shape
     N, K, ps, _ = k_pages.shape
     P = page_table.shape[1]
@@ -80,8 +83,8 @@ def paged_gqa_decode(q: torch.Tensor, k_pages: torch.Tensor,
     in-bounds rows."""
     if q.device.type != "cuda":
         return paged_gqa_decode_ref(q, k_pages, v_pages, page_table, lengths)
-    dims, table, lens = _check("paged_gqa_decode", q, k_pages, v_pages,
-                               page_table, lengths)
+    dims, table, lens = check_paged("paged_gqa_decode", q, k_pages,
+                                    v_pages, page_table, lengths)
     if k_pages.dtype not in POOL_DTYPES:
         raise TypeError(f"paged_gqa_decode: pools must be float32, bfloat16, "
                         f"float16 or fp8 codes, got {k_pages.dtype}")
@@ -105,8 +108,8 @@ def paged_gqa_decode_quant(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         return paged_gqa_decode_quant_ref(q, k_pages, v_pages, k_scale,
                                           v_scale, page_table, lengths)
-    dims, table, lens = _check("paged_gqa_decode_quant", q, k_pages, v_pages,
-                               page_table, lengths)
+    dims, table, lens = check_paged("paged_gqa_decode_quant", q, k_pages,
+                                    v_pages, page_table, lengths)
     B, H, K, d, ps, P, N = dims
     if k_pages.dtype != torch.int8:
         raise TypeError(f"paged_gqa_decode_quant: pools must be int8, got "

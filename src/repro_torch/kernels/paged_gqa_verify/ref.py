@@ -1,0 +1,25 @@
+"""Plain PyTorch version of paged GQA speculative verification.
+
+As the reference's `repro/kernels/paged_gqa_verify/ref.py`: row v of the
+speculative window is scored by the port's decode plain version at length
+`base_lens + v + 1`, one call per window row. That makes the CPU path's
+verify logits bit-identical per row to stepping the non-speculative decode
+path token by token, so speculative greedy tokens equal non-speculative
+ones."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.paged_gqa_decode.ref import paged_gqa_decode_ref
+
+
+def paged_gqa_verify_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, page_table: torch.Tensor,
+                         base_lens: torch.Tensor) -> torch.Tensor:
+    """q: (B, V, H, d); k_pages, v_pages: (N, K, ps, d) (any float dtype or
+    fp8 E4M3 codes); page_table: (B, P) int32; base_lens: (B,) context
+    lengths before the speculative window. Returns (B, V, H, d)."""
+    V = q.shape[1]
+    rows = [paged_gqa_decode_ref(q[:, v], k_pages, v_pages, page_table,
+                                 base_lens + (v + 1)) for v in range(V)]
+    return torch.stack(rows, dim=1)

@@ -1,2 +1,3 @@
 from repro_torch.models.transformer import (  # noqa: F401
-    DecoderLM, init_paged_cache, write_prefill_to_pages)
+    DecoderLM, init_cache, init_paged_cache, self_spec_draft,
+    write_prefill_to_pages)

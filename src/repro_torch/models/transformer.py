@@ -3,27 +3,35 @@
 serving entry points of the reference's `repro/models/transformer.py`:
 
     prefill(params, batch, cache_len)          — prompt forward + dense KV
+    init_cache(cfg, batch, cache_len)          — dense decode cache
+    decode_step(params, cache, tokens)         — one token, dense cache
     init_paged_cache(..., kv_dtype)            — per-layer page pools
     write_prefill_to_pages(cfg, paged, dense, slot, page_ids)
     decode_step_paged(params, cache, tokens)   — one token per slot
+    verify_step_paged(params, cache, tokens)   — a speculative window
+    self_spec_draft(model, params, skip)       — layer-skipping draft
 
 Parameters keep the reference's tree (`repro_torch.params`): the blocks of
 the single pattern slot are stacked along a leading layer axis, and the
 unstacked `tail` is empty for these configs. Prefill attention runs the
 hand-written flash kernel where the reference runs jnp `blocked_attention`;
-paged decode runs the paged GQA kernel. Both dispatch on the tensors'
-device: the CUDA kernel on the card, the plain PyTorch version on the CPU.
-Pages hold the model dtype, another float dtype, fp8 E4M3 codes (uint8) or
-int8 with per-row float32 scales (`kv_dtype`, as in the reference).
+paged decode runs the paged GQA kernel, verification the paged verify
+kernel, and dense decode the dense GQA decode kernel (where the reference
+runs a jnp einsum). All dispatch on the tensors' device: the CUDA kernel on
+the card, the plain PyTorch version on the CPU. Pages hold the model dtype,
+another float dtype, fp8 E4M3 codes (uint8) or int8 with per-row float32
+scales (`kv_dtype`, as in the reference).
 
-Unlike the reference's immutable arrays, the paged cache is updated in
-place: `write_prefill_to_pages` and `decode_step_paged` write into the page
-pools and the position / table / liveness tensors they are given.
+Unlike the reference's immutable arrays, caches are updated in place:
+`write_prefill_to_pages`, `decode_step_paged`, `verify_step_paged` and
+`decode_step` write into the pools / dense caches and the position, table
+and liveness tensors they are given.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -31,9 +39,11 @@ from repro_torch.device import require_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_gqa_decode import (paged_gqa_decode,
                                                   paged_gqa_decode_quant)
+from repro_torch.kernels.paged_gqa_verify import paged_gqa_verify
 from repro_torch.kernels.quant import (FP8_STORAGE_DTYPE, kv_dtype_spec,
                                        quantize_page_rows, to_fp8_codes)
-from repro_torch.models.attention import project_qkv
+from repro_torch.models.attention import (cache_write, decode_attention,
+                                          decode_valid_mask, project_qkv)
 from repro_torch.models.common import (apply_norm, apply_rope, embed_tokens,
                                        lm_logits)
 from repro_torch.models.ffn import apply_ffn
@@ -120,6 +130,74 @@ def _block_decode_paged(cfg, p: dict, x: torch.Tensor, pools: dict,
         o = paged_gqa_decode(q[:, 0], kp, vp, page_table, pos + 1)
     x = x + o.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
     return _ffn_residual(cfg, p, x)
+
+
+def _block_verify_paged(cfg, p: dict, x: torch.Tensor, pools: dict,
+                        pos: torch.Tensor,
+                        page_table: torch.Tensor) -> torch.Tensor:
+    """Speculative-verification block. x: (B, V, D), the V = k + 1 window
+    rows per slot; pools: this layer's "kp"/"vp", written in place; pos:
+    (B,) context lengths before the window. Writes all V K/V rows through
+    the page table at positions pos .. pos + V - 1 (page index clamped to
+    the table, as the reference), then scores the whole window in one
+    `paged_gqa_verify` call. Rows past the eventually accepted count are
+    garbage the next round overwrites before reading."""
+    if "ks" in pools:
+        raise NotImplementedError(
+            "speculative verification does not support int8 KV pages: "
+            "per-row scales of rolled-back rows would need requant-stable "
+            "rewrites; use native/fp16/bf16/fp8 kv_dtype")
+    B, V = x.shape[:2]
+    y = apply_norm(cfg, p["norm1"], x)
+    q, k, v = project_qkv(cfg, p["attn"], y, y)
+    positions = pos[:, None] + torch.arange(V, dtype=pos.dtype,
+                                            device=pos.device)[None, :]
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    kp, vp = pools["kp"], pools["vp"]
+    ps = kp.shape[-2]
+    P = page_table.shape[1]
+    pidx = page_table[torch.arange(B, device=x.device)[:, None],
+                      (positions // ps).clamp(0, P - 1)].long()   # (B, V)
+    off = (positions % ps).long()
+    kp[pidx, :, off] = _pool_cast(k, kp.dtype)
+    vp[pidx, :, off] = _pool_cast(v, vp.dtype)
+    o = paged_gqa_verify(q, kp, vp, page_table, pos)
+    x = x + o.reshape(B, V, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
+    return _ffn_residual(cfg, p, x)
+
+
+def _block_decode(cfg, p: dict, x: torch.Tensor, cache: dict, pos: int,
+                  positions: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """Dense decode block. x: (B, 1, D); cache: this layer's "k"/"v"
+    (B, T, K, h), written in place at `pos` (clamped to T - 1); positions:
+    (B, 1) the RoPE positions (all `pos`); lengths: (B,) rows to attend."""
+    B = x.shape[0]
+    y = apply_norm(cfg, p["norm1"], x)
+    q, k, v = project_qkv(cfg, p["attn"], y, y)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    ck, cv = cache_write(cache["k"], cache["v"], k, v, pos)
+    o = decode_attention(q, ck, cv, lengths)
+    x = x + o.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
+    return _ffn_residual(cfg, p, x)
+
+
+def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
+               device="cuda") -> Dict[str, Any]:
+    """Dense decode cache: per-layer K/V (stacked over the layers,
+    (L, batch, cache_len, K, h)) and the shared position, as `prefill`
+    returns it."""
+    require_full_attention(cfg)
+    dev = require_device(device)
+    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"slots": [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+                       "v": torch.zeros(shape, dtype=dtype, device=dev)}],
+            "pos": 0}
 
 
 def init_paged_cache(cfg, num_slots: int, num_pages: int, page_size: int,
@@ -254,3 +332,86 @@ class DecoderLM:
         cache["pos"] = pos + cache["active"].to(pos.dtype)
         x = apply_norm(cfg, params["final_norm"], x)
         return lm_logits(cfg, params["embed"], x), cache
+
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
+        """tokens: (B, 1) against a dense cache (`init_cache`, or the one
+        `prefill` returns). Returns (logits (B, 1, V), cache), the cache
+        updated in place: every sequence writes its K/V row at `pos` and
+        attends the rows `decode_valid_mask("full", T, pos)` allows, and
+        `pos` advances by one. Past the cache (pos >= T) the write lands on
+        row T - 1 and all T rows are attended, as the reference's clamped
+        `dynamic_update_slice` does."""
+        cfg = self.cfg
+        pos = int(cache["pos"])
+        entry = cache["slots"][0]
+        B = tokens.shape[0]
+        T = entry["k"].shape[2]
+        positions = torch.full((B, 1), pos, dtype=torch.long,
+                               device=self.device)
+        lengths = decode_valid_mask("full", T, pos, self.device).sum(
+            dtype=torch.int32).expand(B)
+        x = embed_tokens(cfg, params["embed"], tokens.long(), positions,
+                         self.compute_dtype)
+        for i, p in enumerate(self._blocks(params)):
+            x = _block_decode(cfg, p, x, {k: v[i] for k, v in entry.items()},
+                              pos, positions, lengths)
+        cache["pos"] = pos + 1
+        x = apply_norm(cfg, params["final_norm"], x)
+        return lm_logits(cfg, params["embed"], x), cache
+
+    def verify_step_paged(self, params: dict, cache: dict,
+                          tokens: torch.Tensor):
+        """tokens: (num_slots, V), the pending token followed by the
+        k = V - 1 drafted candidates, against an `init_paged_cache` state.
+        Writes all V K/V rows at positions pos .. pos + V - 1 through the
+        page table (in place) and scores the window with one
+        `paged_gqa_verify` call per layer; logits[:, v] conditions on
+        tokens[:, :v + 1]. Returns (logits (num_slots, V, vocab), cache).
+        `pos` is not advanced: the speculative loop moves it by the
+        accepted count, so a rejected suffix rolls back for free."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        page_table = cache["page_table"]
+        entry = cache["slots"][0]
+        V = tokens.shape[1]
+        positions = pos[:, None] + torch.arange(V, dtype=pos.dtype,
+                                                device=pos.device)[None, :]
+        x = embed_tokens(cfg, params["embed"], tokens.long(), positions,
+                         self.compute_dtype)
+        for i, p in enumerate(self._blocks(params)):
+            x = _block_verify_paged(cfg, p, x,
+                                    {k: v[i] for k, v in entry.items()}, pos,
+                                    page_table)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return lm_logits(cfg, params["embed"], x), cache
+
+
+def self_spec_draft(model: DecoderLM, params: dict,
+                    skip: int = 2) -> Tuple[DecoderLM, dict]:
+    """Self-speculation draft: the target restricted to every `skip`-th
+    layer, sharing the target's weights. The stacked block tensors are
+    sliced along the layer axis as views (`a[::skip]`, no copy); the
+    embedding, final norm and LM head are the target's. `skip=1` gives a
+    draft whose greedy drafts always match the target, a 100%-acceptance
+    oracle."""
+    cfg = model.cfg
+    if len(cfg.block_pattern) != 1:
+        raise NotImplementedError(
+            "self-speculation slices the stacked params of one pattern "
+            f"slot; {cfg.name} has pattern {cfg.block_pattern}")
+    if skip < 1:
+        raise ValueError(f"skip must be >= 1, got {skip}")
+    dcfg = dataclasses.replace(cfg, num_layers=len(range(0, cfg.num_layers,
+                                                         skip)),
+                               name=f"{cfg.name}-selfspec{skip}")
+
+    def every(tree):
+        return {k: every(v) if isinstance(v, dict) else v[::skip]
+                for k, v in tree.items()}
+
+    dparams = dict(params)
+    dparams["blocks"] = [every(params["blocks"][0])]
+    dparams["tail"] = []
+    draft = DecoderLM(dcfg, compute_dtype=model.compute_dtype,
+                      device=model.device)
+    return draft, dparams

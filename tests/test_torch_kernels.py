@@ -229,3 +229,78 @@ def test_int8_matmul_kernel_matches_plain_version_on_card():
         assert torch.equal(int8_matmul_acc(x, w), int8_matmul_acc_ref(x, w))
         assert torch.equal(int8_matmul(x, w, sx, sw),
                            int8_matmul_ref(x, w, sx, sw))
+
+
+def _verify_case_on_card(seed, B, H, K, d, ps, P, N, V):
+    """Random pools and ragged base lengths for a V-row window; every
+    slot's table covers base + V rows (slot 0's base is a page multiple)."""
+    rng = np.random.default_rng(seed)
+    kp = rng.standard_normal((N, K, ps, d)).astype(np.float32)
+    vp = rng.standard_normal((N, K, ps, d)).astype(np.float32)
+    q = rng.standard_normal((B, V, H, d)).astype(np.float32)
+    base = rng.integers(1, P * ps - V + 1, B)
+    base[0] = ps * max(1, int(base[0]) // ps)
+    table = np.zeros((B, P), np.int32)
+    ids = list(rng.permutation(np.arange(1, N)))
+    for b in range(B):
+        for j in range(-(-(int(base[b]) + V) // ps)):
+            table[b, j] = ids.pop()
+    return [torch.from_numpy(x).to("cuda")
+            for x in (q, kp, vp, table, base.astype(np.int32))]
+
+
+@pytest.mark.gpu
+def test_verify_kernel_matches_plain_version_and_decode_on_card():
+    """Kernel 6 against its plain version on float32, bfloat16 and fp8
+    pools, and row v against kernel 1 at base + v + 1: the same
+    operations, so bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_gqa_verify import (paged_gqa_verify,
+                                                      paged_gqa_verify_ref)
+    from repro_torch.kernels.quant import to_fp8_codes
+    for H, K, d, V in [(12, 2, 128, 4), (25, 25, 64, 3), (8, 2, 32, 2)]:
+        q, kp, vp, table, base = _verify_case_on_card(V + H, 3, H, K, d, 16,
+                                                      6, 40, V)
+        for pools, qd, tol in (((kp, vp), torch.float32, ATOL),
+                               ((kp.bfloat16(), vp.bfloat16()),
+                                torch.bfloat16, 1e-2),
+                               ((to_fp8_codes(kp), to_fp8_codes(vp)),
+                                torch.float32, ATOL)):
+            got = paged_gqa_verify(q.to(qd), *pools, table, base)
+            want = paged_gqa_verify_ref(q, *pools, table, base)
+            assert got.dtype == qd and got.shape == q.shape
+            assert (got.float() - want).abs().max().item() <= tol
+            for v in range(V):
+                row = paged_gqa_decode(q[:, v].to(qd), *pools, table,
+                                       base + v + 1)
+                assert torch.equal(got[:, v], row)
+    q, kp, vp, table, base = _verify_case_on_card(0, 2, 12, 2, 128, 16, 6,
+                                                  40, 6)
+    with pytest.raises(ValueError, match="speculate_k"):
+        paged_gqa_verify(q, kp, vp, table, base)
+
+
+@pytest.mark.gpu
+def test_dense_decode_kernel_matches_plain_version_on_card():
+    """Kernel 7 through the transposed (B, K, T, d) view of a (B, T, K, d)
+    cache, on float32, bfloat16 and float16 caches, with ragged lengths and
+    one past T."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
+    rng = np.random.default_rng(5)
+    for H, K, d, T in [(12, 2, 128, 640), (25, 25, 64, 100), (4, 4, 16, 33)]:
+        q = torch.from_numpy(rng.standard_normal((4, H, d)).astype(
+            np.float32)).cuda()
+        k, v = (torch.from_numpy(rng.standard_normal((4, T, K, d)).astype(
+            np.float32)).cuda() for _ in range(2))
+        lens = torch.tensor([1, T // 3, T, T + 5], dtype=torch.int32).cuda()
+        for cd, qd, tol in ((torch.float32, torch.float32, ATOL),
+                            (torch.bfloat16, torch.bfloat16, 1e-2),
+                            (torch.float16, torch.float32, ATOL)):
+            kc, vc = k.to(cd).transpose(1, 2), v.to(cd).transpose(1, 2)
+            got = gqa_decode(q.to(qd), kc, vc, lens)
+            want = gqa_decode_ref(q, kc, vc, lens)
+            assert got.dtype == qd
+            assert (got.float() - want).abs().max().item() <= tol

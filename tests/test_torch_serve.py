@@ -100,7 +100,8 @@ def test_unported_options_raise():
     cfg = tconfigs.reduced(tconfigs.get_arch("gpt2-xl"), layers=2)
     m = DecoderLM(cfg, compute_dtype=torch.float32, device="cpu")
     for kw in (dict(prefix_cache=True), dict(prefill_chunk_tokens=8),
-               dict(speculate_k=2), dict(speculate_k=2, kv_dtype="int8")):
+               dict(speculate_k=2, kv_dtype="int8"), dict(telemetry=object()),
+               dict(meter=object())):
         with pytest.raises(NotImplementedError):
             PagedContinuousBatcher(m, {}, **kw, **GEOMETRY)
     with pytest.raises(NotImplementedError, match="int8"):
