@@ -12,7 +12,11 @@ kernel. It builds the
 CUDA kernels from `src/repro_torch/csrc/` first, holds every kernel against
 its plain PyTorch version at its path's shapes, and checks that each path
 launched its kernels (launch counts are set to 0 just before a path and
-read just after it). Each phase prints one JSON line; the last three lines
+read just after it). The bf16 tensor-core prefill kernel is also held to
+its mirror and to equal rows for a shorter prompt, and the split dense
+decode kernel to its mirror and to equal rows at batch 1 and 8; both also
+get device times from a CUDA graph, beside one SDPA call's. Each phase
+prints one JSON line; the last three lines
 are the kernel summary, the card's `nvidia-smi` name and power limit, then
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
@@ -105,6 +109,41 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device milliseconds per call of `fn`: `calls` back-to-back calls
+    captured in one CUDA graph, replayed `reps` times between CUDA events
+    (median). Unlike `cuda_ms` it leaves out the host's launch overhead,
+    which exceeds a kernel of a few microseconds."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
+def timed(fn, lib) -> dict:
+    """The times of the tensor-core prefill and split decode kernels and of
+    their SDPA yardstick: CUDA events around one call, host launch overhead
+    included, as every row is timed (`ms`, `library_ms`), and device time
+    per call from a CUDA graph (`device_ms`, `library_device_ms`)."""
+    return dict(ms=cuda_ms(fn), library_ms=cuda_ms(lib),
+                device_ms=graph_ms(fn), library_device_ms=graph_ms(lib))
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -146,8 +185,6 @@ def decode_case(gen, B, H, K, d, lengths, dtype, num_pages):
 
 def kernel_phase(gen) -> dict:
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_ref)
     from repro_torch.kernels.paged_gqa_decode import (paged_gqa_decode,
                                                       paged_gqa_decode_ref)
     cfg = get_arch(ARCH)
@@ -211,38 +248,14 @@ def kernel_phase(gen) -> dict:
         rows.setdefault("paged_gqa_decode_quant", []).append(row)
 
     # prefill attention at the serve's longest and a ragged prompt
-    for tag, c, S, dtype in ((ARCH, cfg, int(lengths.max()), torch.bfloat16),
-                             (ARCH, cfg, int(lengths.max()), torch.float32),
-                             (ARCH, cfg, int(lengths.min()), torch.float32),
+    S_max, S_min = int(lengths.max()), int(lengths.min())
+    for tag, c, S, dtype in ((ARCH, cfg, S_max, torch.bfloat16),
+                             (ARCH, cfg, S_max, torch.float32),
+                             (ARCH, cfg, S_min, torch.float32),
+                             ("gpt2-xl", gpt2, 333, torch.bfloat16),
                              ("gpt2-xl", gpt2, 333, torch.float32)):
-        H, K, d = c.num_heads, c.num_kv_heads, c.head_dim
-        q = torch.randn((1, S, H, d), generator=gen, device="cuda").to(dtype)
-        k = torch.randn((1, S, K, d), generator=gen, device="cuda").to(dtype)
-        v = torch.randn((1, S, K, d), generator=gen, device="cuda").to(dtype)
-        out = flash_attention(q, k, v)
-        ref = flash_attention_ref(q.float(), k.float(), v.float())
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
-        check(bool(torch.isfinite(out.float()).all()), "flash finite")
-        check(err <= TOL[dtype], f"flash {tag} S={S} {dtype}: {err}")
-        isz = q.element_size()
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz
-        flops = 4.0 * H * d * S * (S + 1) / 2
-        b_ms, b_by = bound(nbytes, flops, dtype)
-        # the library yardstick: one SDPA call on heads-major views, with
-        # the KV heads repeated for the GQA group beforehand
-        qt = q.transpose(1, 2)
-        kt, vt = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
-                  for x in (k, v))
-        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-        row = dict(shape=f"B1 S{S} H{H} K{K} d{d}", arch=tag,
-                   dtype=str(dtype), max_abs_err=err, tolerance=TOL[dtype],
-                   ms=cuda_ms(lambda: flash_attention(q, k, v)),
-                   plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v),
-                                    reps=5),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-        rows.setdefault("flash_attention", []).append(row)
+        rows.setdefault("flash_attention", []).append(
+            flash_row(gen, tag, c, S, S_min, dtype))
 
     rows["int8_matmul"] = [int8_mm_row(gen, int(lengths.max()), k, n)
                            for k, n in FFN_SHAPES]
@@ -269,14 +282,80 @@ def kernel_phase(gen) -> dict:
             f"{tag} pools {pools}", c, (q, kp, vp, table, base)))
 
     # dense decode at the dense serve's cache length, through the
-    # (B, K, T, d) view of a (B, T, K, d) cache, as the decode step passes it
+    # (B, K, T, d) view of a (B, T, K, d) cache, as the decode step passes
+    # it: BatchedServer's batch of 8, then ContinuousBatcher's batch of 1
     dense_lens = np.r_[lengths[:SLOTS - 1] + NEW_TOKENS // 2, DENSE_MAX_LEN]
-    for tag, c, dtype in ((ARCH, cfg, torch.bfloat16),
-                          (ARCH, cfg, torch.float32),
-                          ("gpt2-xl", gpt2, torch.float32)):
+    for tag, c, dtype, lens in ((ARCH, cfg, torch.bfloat16, dense_lens),
+                                (ARCH, cfg, torch.float32, dense_lens),
+                                ("gpt2-xl", gpt2, torch.float32, dense_lens),
+                                (ARCH, cfg, torch.bfloat16, dense_lens[:1])):
         rows.setdefault("gqa_decode", []).append(
-            dense_row(gen, tag, c, dense_lens, dtype))
+            dense_row(gen, tag, c, lens, dtype))
     return rows
+
+
+def flash_row(gen, tag, c, S, S_min, dtype) -> dict:
+    """The prefill kernel `flash_attention` dispatches to (`variant`)
+    against the float32 plain version at one prompt; a bf16 prompt also
+    against the tensor-core kernel's mirror (within one bf16 step at the
+    output's largest magnitude, and each element within one bf16 step of
+    the mirror's plus MIRROR_ATOL) and, cut to S_min, for equal
+    shared rows (0.0). The
+    library yardstick is one SDPA call on heads-major views, with the KV
+    heads repeated for the GQA group beforehand."""
+    from repro_torch.kernels.flash_attention import (
+        MIRROR_ATOL, bf16_excess, bf16_step, flash_attention,
+        flash_attention_bf16_mirror_ref, flash_attention_ref, variant)
+    H, K, d = c.num_heads, c.num_kv_heads, c.head_dim
+    q = torch.randn((1, S, H, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((1, S, K, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((1, S, K, d), generator=gen, device="cuda").to(dtype)
+    out = flash_attention(q, k, v)
+    ref = flash_attention_ref(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    check(bool(torch.isfinite(out.float()).all()), "flash finite")
+    check(err <= TOL[dtype], f"flash {tag} S={S} {dtype}: {err}")
+    want = "tensor-core" if dtype == torch.bfloat16 else "cuda-core"
+    check(variant(q) == want, f"flash {tag} {dtype} runs the {want} kernel")
+    extra = {}
+    if dtype == torch.bfloat16:
+        mirror = flash_attention_bf16_mirror_ref(q, k, v)
+        extra = dict(max_abs_err_mirror=max_err(out, mirror),
+                     mirror_step=float(bf16_step(mirror).max()),
+                     mirror_excess=bf16_excess(out, mirror),
+                     mirror_tolerance=MIRROR_ATOL,
+                     prefix_rows=S_min, prefix_max_abs_diff=max_err(
+                         out[:, :S_min], flash_attention(
+                             q[:, :S_min], k[:, :S_min], v[:, :S_min])))
+        check(extra["max_abs_err_mirror"] <= extra["mirror_step"],
+              f"flash {tag} vs its bf16 mirror: "
+              f"{extra['max_abs_err_mirror']} > one bf16 step of the output "
+              f"{extra['mirror_step']}")
+        check(extra["mirror_excess"] <= MIRROR_ATOL,
+              f"flash {tag} vs its bf16 mirror: an element strays "
+              f"{extra['mirror_excess']} beyond one bf16 step, > "
+              f"{MIRROR_ATOL}")
+        check(extra["prefix_max_abs_diff"] == 0.0,
+              f"flash {tag}: rows of prompt[:{S_min}] vs prompt[:{S}] "
+              f"differ by {extra['prefix_max_abs_diff']}")
+    isz = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz
+    flops = 4.0 * H * d * S * (S + 1) / 2
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
+              for x in (k, v))
+    return dict(shape=f"B1 S{S} H{H} K{K} d{d}", arch=tag, dtype=str(dtype),
+                variant=variant(q), max_abs_err=err, tolerance=TOL[dtype],
+                **extra,
+                **timed(lambda: flash_attention(q, k, v),
+                        lambda: torch.nn.functional
+                        .scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)),
+                plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v),
+                                 reps=5),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def verify_row(tag, c, args) -> dict:
@@ -319,10 +398,15 @@ def verify_row(tag, c, args) -> dict:
 
 
 def dense_row(gen, tag, c, lengths, dtype) -> dict:
-    """The dense decode kernel against its plain version on a (B, T, K, d)
-    cache seen as (B, K, T, d); the library yardstick is one SDPA call with
-    the lengths mask and the KV heads shared by the group."""
-    from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
+    """The dense decode kernel against its plain version and its split
+    mirror on a (B, T, K, d) cache seen as (B, K, T, d); at B > 1 each
+    sequence's batch-1 call must give its batch row bit for bit (0.0). The
+    library yardstick is one SDPA call with the lengths mask and the KV
+    heads shared by the group."""
+    from repro_torch.kernels.gqa_decode import (SPLIT_ROWS, gqa_decode,
+                                                gqa_decode_ref,
+                                                gqa_decode_split_ref,
+                                                num_splits)
     B, T = len(lengths), DENSE_MAX_LEN
     H, K, d = c.num_heads, c.num_kv_heads, c.head_dim
     q = torch.randn((B, H, d), generator=gen, device="cuda").to(dtype)
@@ -331,10 +415,22 @@ def dense_row(gen, tag, c, lengths, dtype) -> dict:
     lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
     out = gqa_decode(q, kc, vc, lens)
     want = gqa_decode_ref(q.float(), kc, vc, lens)
+    mirror = gqa_decode_split_ref(q.float(), kc, vc, lens, SPLIT_ROWS)
     torch.cuda.synchronize()
-    err = max_err(out, want)
+    err, err_mirror = max_err(out, want), max_err(out, mirror)
     check(bool(torch.isfinite(out.float()).all()), f"dense {tag} finite")
     check(err <= TOL[dtype], f"gqa_decode {tag} {dtype}: {err}")
+    check(err_mirror <= TOL[dtype],
+          f"gqa_decode {tag} {dtype} vs split mirror: {err_mirror}")
+    extra = {}
+    if B > 1:
+        extra["batch_invariance_max_abs_diff"] = max(
+            max_err(out[b:b + 1], gqa_decode(q[b:b + 1], kc[b:b + 1],
+                                               vc[b:b + 1], lens[b:b + 1]))
+            for b in range(B))
+        check(extra["batch_invariance_max_abs_diff"] == 0.0,
+              f"gqa_decode {tag}: batch-1 rows differ from the batch-{B} "
+              f"call by {extra['batch_invariance_max_abs_diff']}")
     ctx = int(lens.clamp(max=T).sum())
     nbytes = (2 * q.numel() * q.element_size() + lens.numel() * 4
               + 2 * ctx * K * d * q.element_size())
@@ -342,15 +438,19 @@ def dense_row(gen, tag, c, lengths, dtype) -> dict:
     mask = (torch.arange(T, device="cuda")[None, :]
             < lens[:, None].long())[:, None, None, :]
     qs = q[:, :, None, :]
-    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, kc, vc, attn_mask=mask, enable_gqa=True))
     return dict(shape=f"B{B} T{T} H{H} K{K} d{d} ctx{ctx} (B,T,K,d) view",
-                arch=tag, dtype=str(dtype), max_abs_err=err,
-                tolerance=TOL[dtype],
-                ms=cuda_ms(lambda: gqa_decode(q, kc, vc, lens)),
+                arch=tag, dtype=str(dtype),
+                variant=f"split: split_rows {SPLIT_ROWS}, nsplit "
+                f"{num_splits(T)}",
+                max_abs_err=err, tolerance=TOL[dtype],
+                max_abs_err_mirror=err_mirror, **extra,
+                **timed(lambda: gqa_decode(q, kc, vc, lens),
+                        lambda: torch.nn.functional
+                        .scaled_dot_product_attention(
+                            qs, kc, vc, attn_mask=mask, enable_gqa=True)),
                 plain_ms=cuda_ms(lambda: gqa_decode_ref(q, kc, vc, lens),
                                  reps=5),
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def decode_row(tag, c, fn, ref, args, lens, pool_isz, scale_bytes=0):
@@ -903,7 +1003,9 @@ def main() -> None:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            shape=row["shape"], dtype=row["dtype"]))
+            shape=row["shape"], dtype=row["dtype"],
+            **{key: row[key] for key in ("variant", "device_ms",
+                                         "library_device_ms") if key in row}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

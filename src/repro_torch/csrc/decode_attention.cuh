@@ -14,7 +14,9 @@
 //
 // Bound on the H100: every call reads each resident K and V row once and
 // does about 4 * R * d flops per row, a few flops per byte, so it is bound
-// by bytes. The design:
+// by bytes. Two paths share the load and row-addressing policies:
+//
+// The unsplit path (decode_attention_kernel; paged decode, verification):
 //   * one block per (KV head, sequence), walking the context in tiles of 32
 //     rows up to the widest window row's horizon;
 //   * the R query rows share each row load: a warp loads one K row into
@@ -28,9 +30,30 @@
 //     / 2 and the denominator is clamped at 1e-30, as in the reference;
 //   * V rows are read coalesced by the threads that own consecutive output
 //     dimensions.
-// Only K x B blocks run (16 for dsr1d at 8 sequences), so the kernel is far
-// from its bound at the serving batch; splitting the context across blocks
-// is later work.
+//   Only K x B blocks run (16 for dsr1d at 8 sequences, 2 at one).
+//
+// The split-context path (decode_split_kernel + decode_merge_kernel; dense
+// decode, V = 1, float caches):
+//   * a grid of (KV head, sequence, split): split s walks the fixed rows
+//     [s * kSplitRows, (s + 1) * kSplitRows), and the split count,
+//     ceil(T / kSplitRows), depends on the cache length only, so a
+//     sequence's arithmetic does not depend on the batch beside it;
+//   * the split's K and V rows are copied to shared memory with 16-byte
+//     cp.async copies issued together with the query and length loads
+//     (rows past the cache zero-filled), in rows padded by 16 bytes;
+//   * each thread scores whole K rows against its query rows (no sums
+//     across lanes), one warp per query row takes the split's softmax, and
+//     P V runs over slices of the rows so that every thread works;
+//   * each split writes a float32 partial (m, l, acc) of its rows to a
+//     workspace the caller allocates; a split wholly past lengths[b]
+//     writes m = -1e30, l = 0, acc = 0;
+//   * a second launch, scheduled while the first runs (programmatic
+//     dependent launch), merges each (KV head, sequence)'s splits in the
+//     fixed order 0, 1, ..., one thread per output element: weights
+//     exp(m_s - max m), 0 for an empty split, so it drops out exactly; the
+//     denominator clamped at 1e-30.
+// Moving paged decode and verification onto the split path is later work.
+
 #pragma once
 
 #include "common.cuh"
@@ -60,14 +83,57 @@ __device__ __forceinline__ float e4m3_to_f32(unsigned int c) {
   return (c & 0x80u) ? -mag : mag;
 }
 
+// 16 bytes of a float cache as float32, exactly (bfloat16 is the top
+// half of a float32)
+template <typename E>
+struct Unpack16;
+template <>
+struct Unpack16<float> {
+  static __device__ __forceinline__ void run(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+template <>
+struct Unpack16<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <>
+struct Unpack16<__half> {
+  static __device__ __forceinline__ void run(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __half2float(__ushort_as_half(
+          static_cast<unsigned short>(w[i] & 0xffffu)));
+      f[2 * i + 1] = __half2float(__ushort_as_half(
+          static_cast<unsigned short>(w[i] >> 16)));
+    }
+  }
+};
+
 // Load policies: the cache's element type, its float32 value, and whether
-// each row carries a float32 scale.
+// each row carries a float32 scale; float caches also unpack 16 bytes
+// (kVec elements) at once for the split path.
 template <typename E>
 struct LoadFloat {
   using Elem = E;
   static constexpr bool kScaled = false;
+  static constexpr int kVec = 16 / sizeof(E);
   static __device__ __forceinline__ float get(const E* p, long long i) {
     return to_f32(p[i]);
+  }
+  static __device__ __forceinline__ void vec(const uint4& u, float* f) {
+    Unpack16<E>::run(u, f);
   }
 };
 struct LoadE4M3 {
@@ -286,6 +352,306 @@ cudaError_t launch_decode_attention(const void* q, const void* kc,
   else TRAPTI_ATTEND(8);
 #undef TRAPTI_ATTEND
   return cudaGetLastError();
+}
+
+// ------------------------------------------------- split-context path
+constexpr int kSplitRows = 64;  // context rows per split block
+constexpr int kMergeRegs = 16;  // splits the merge loads per chunk
+
+// Partials of one (sequence, KV head, split), G query rows: m[G], l[G],
+// then acc[G][d]; splits of a (sequence, KV head) are adjacent.
+__device__ __forceinline__ size_t partial_offset(int b, int kh, int s,
+                                                 int K, int nsplit, int G,
+                                                 int d) {
+  return ((static_cast<size_t>(b) * K + kh) * nsplit + s) * G * (d + 2);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; zero-fills the 16 bytes when !valid
+__device__ __forceinline__ void copy16_async(void* dst, const void* src,
+                                             bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// Shared memory of the split kernel: the K and V rows (padded by 16 bytes
+// so that threads reading consecutive rows hit distinct banks), the scaled
+// query rows, the scores (then weights), and P V's partial sums.
+template <typename E>
+__host__ __device__ constexpr int split_row_ld(int d) {
+  return d + 16 / static_cast<int>(sizeof(E));
+}
+template <typename E>
+__host__ __device__ inline int split_smem_bytes(int G, int d) {
+  const int vec = 16 / static_cast<int>(sizeof(E));
+  const int red = kThreads * vec > G * d ? kThreads * vec : G * d;
+  return 2 * kSplitRows * split_row_ld<E>(d) * static_cast<int>(sizeof(E)) +
+         (G * d + G * kSplitRows + red) * static_cast<int>(sizeof(float));
+}
+
+template <typename Load, typename Rows>
+__global__ void __launch_bounds__(kThreads)
+decode_split_kernel(const void* __restrict__ q,
+                    const typename Load::Elem* __restrict__ kc,
+                    const typename Load::Elem* __restrict__ vc,
+                    const Rows rows, const int* __restrict__ lengths,
+                    float* __restrict__ part, int H, int K, int d,
+                    float scale, bool q_bf16) {
+  using E = typename Load::Elem;
+  constexpr int kVec = Load::kVec;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int G = H / K, nch = d / kVec, ld = split_row_ld<E>(d);
+  E* k_sh = reinterpret_cast<E*>(smem_raw);                  // 64 x ld
+  E* v_sh = k_sh + kSplitRows * ld;                          // 64 x ld
+  float* q_sh = reinterpret_cast<float*>(v_sh + kSplitRows * ld);  // G x d
+  float* w_sh = q_sh + G * d;  // G x 64: scores, then weights
+  float* red_sh = w_sh + G * kSplitRows;  // max(256 kVec, G d)
+
+  // the merge launch may start; it waits for this grid to finish
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int t0 = split * kSplitRows;
+  const int in_cache = min(kSplitRows, rows.cap() - t0);
+
+  // Every global load is issued before any is waited on: the split's K/V
+  // rows that lie in the cache, copied to shared memory (rows past the
+  // cache zero-filled; rows past the sequence are masked below), the
+  // query rows and the length.
+  for (int i = tid; i < kSplitRows * nch; i += kThreads) {
+    const int r = i / nch, c = (i - r * nch) * kVec;
+    const bool ok = r < in_cache;
+    const long long off = ok ? rows.elem(rows.row(b, kh, t0 + r), d) + c : 0;
+    copy16_async(k_sh + r * ld + c, kc + off, ok);
+    copy16_async(v_sh + r * ld + c, vc + off, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  const size_t q0 = (static_cast<size_t>(b) * H + kh * G) * d;
+  float qx[kMaxAcc];
+#pragma unroll
+  for (int j = 0; j < kMaxAcc; ++j) {
+    const int i = tid + j * kThreads;
+    qx[j] = i >= G * d ? 0.f
+            : q_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(q)[q0 + i])
+                     : static_cast<const float*>(q)[q0 + i];
+  }
+  const int n = min(in_cache, lengths[b] - t0);  // the split's valid rows
+  float* pm = part + partial_offset(b, kh, split, K, gridDim.z, G, d);
+  if (n <= 0) {  // wholly past the sequence: drops out of the merge
+    for (int i = tid; i < G; i += kThreads) {
+      pm[i] = kNegInf;
+      pm[G + i] = 0.f;
+    }
+    for (int i = tid; i < G * d; i += kThreads) pm[2 * G + i] = 0.f;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // before exiting
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxAcc; ++j) {
+    const int i = tid + j * kThreads;
+    if (i < G * d) q_sh[i] = qx[j] * scale;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // scores: thread (row r, query rows g = gs, gs + 4, ...) takes the whole
+  // dot product of its staged K row, in kVec running sums over the row's
+  // 16-byte chunks added at the end: no sums across lanes
+  {
+    constexpr int kRowSets = kThreads / kSplitRows;
+    const int r = tid % kSplitRows;
+    const uint4* krow = reinterpret_cast<const uint4*>(k_sh + r * ld);
+    for (int g = tid / kSplitRows; g < G; g += kRowSets) {
+      const float4* qg = reinterpret_cast<const float4*>(q_sh + g * d);
+      float a[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) a[e] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < nch; ++c) {
+        float kf[kVec];
+        Load::vec(krow[c], kf);
+#pragma unroll
+        for (int u = 0; u < kVec / 4; ++u) {
+          const float4 x = qg[c * (kVec / 4) + u];
+          a[4 * u] += x.x * kf[4 * u];
+          a[4 * u + 1] += x.y * kf[4 * u + 1];
+          a[4 * u + 2] += x.z * kf[4 * u + 2];
+          a[4 * u + 3] += x.w * kf[4 * u + 3];
+        }
+      }
+      float sum = a[0];
+#pragma unroll
+      for (int e = 1; e < kVec; ++e) sum += a[e];
+      w_sh[g * kSplitRows + r] = r < n ? sum : kNegInf;
+    }
+  }
+  __syncthreads();
+
+  // the split's softmax: warp w takes query rows w, w + 8, ...; lane j
+  // holds rows j and j + 32
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int g = warp; g < G; g += kWarps) {
+    float* w = w_sh + g * kSplitRows;
+    const float s0 = w[lane], s1 = w[lane + 32];
+    const float m = warp_max(fmaxf(s0, s1));
+    const float p0 = s0 <= kNegInf / 2 ? 0.f : expf(s0 - m);
+    const float p1 = s1 <= kNegInf / 2 ? 0.f : expf(s1 - m);
+    const float l = warp_sum(p0 + p1);
+    w[lane] = p0;
+    w[lane + 32] = p1;
+    if (lane == 0) {
+      pm[g] = m;
+      pm[G + g] = l;
+    }
+  }
+  __syncthreads();
+
+  // acc = P V over the split's valid rows. Item (query row g, 16-byte
+  // chunk c of its output row); rs row slices per item, slice j summing
+  // rows j, j + rs, ... so that all threads work; the slices are then
+  // added in order 0, 1, ...
+  const int items = G * nch, rs = max(1, kThreads / items);
+  for (int it = tid; it < items * rs; it += kThreads) {
+    const int slice = it / items, item = it - slice * items;
+    const int g = item / nch, c = item - g * nch;
+    const float* w = w_sh + g * kSplitRows;
+    float acc[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
+#pragma unroll 4
+    for (int r = slice; r < n; r += rs) {
+      float x[kVec];
+      Load::vec(reinterpret_cast<const uint4*>(v_sh + r * ld)[c], x);
+      const float p = w[r];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[e] += p * x[e];
+    }
+    float* red = red_sh + static_cast<size_t>(it) * kVec;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) red[e] = acc[e];
+  }
+  __syncthreads();
+  for (int it = tid; it < items; it += kThreads) {
+    const int g = it / nch, c = it - g * nch;
+    float acc[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] = red_sh[it * kVec + e];
+    for (int j = 1; j < rs; ++j) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        acc[e] += red_sh[(static_cast<size_t>(j) * items + it) * kVec + e];
+    }
+    float* dst = pm + 2 * G + g * d + c * kVec;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dst[e] = acc[e];
+  }
+}
+
+// Merge the splits of each (KV head, sequence) in order 0, 1, ... into
+// out (B, H, d) of type O (float or __nv_bfloat16): one thread per output
+// element, a grid of (KV head, sequence, ceil(G d / 256)). Splits are read
+// in chunks of kMergeRegs, each chunk's loads in flight together: a pass
+// for the largest m, then one for the weighted sums.
+template <typename O>
+__global__ void __launch_bounds__(kThreads)
+decode_merge_kernel(const float* __restrict__ part, O* __restrict__ out,
+                    int H, int K, int d, int nsplit) {
+  // launched while the split grid runs: wait for its partials
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int kh = blockIdx.x, b = blockIdx.y, G = H / K;
+  const int i = blockIdx.z * kThreads + threadIdx.x;
+  if (i >= G * d) return;
+  const int g = i / d;
+  const float* base = part + partial_offset(b, kh, 0, K, nsplit, G, d);
+  const size_t stride = static_cast<size_t>(G) * (d + 2);
+  float top = kNegInf;
+  for (int s0 = 0; s0 < nsplit; s0 += kMergeRegs) {
+    float m[kMergeRegs];
+#pragma unroll
+    for (int s = 0; s < kMergeRegs; ++s)
+      m[s] = s0 + s < nsplit ? base[(s0 + s) * stride + g] : kNegInf;
+#pragma unroll
+    for (int s = 0; s < kMergeRegs; ++s) top = fmaxf(top, m[s]);
+  }
+  float den = 0.f, num = 0.f;
+  for (int s0 = 0; s0 < nsplit; s0 += kMergeRegs) {
+    float m[kMergeRegs], l[kMergeRegs], a[kMergeRegs];
+#pragma unroll
+    for (int s = 0; s < kMergeRegs; ++s) {
+      const bool ok = s0 + s < nsplit;
+      const float* p = base + (s0 + s) * stride;
+      m[s] = ok ? p[g] : kNegInf;
+      l[s] = ok ? p[G + g] : 0.f;
+      a[s] = ok ? p[2 * G + i] : 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < kMergeRegs; ++s) {
+      if (s0 + s < nsplit) {
+        const float w = m[s] <= kNegInf / 2 ? 0.f : expf(m[s] - top);
+        den += l[s] * w;
+        num += a[s] * w;
+      }
+    }
+  }
+  out[(static_cast<size_t>(b) * H + kh * G) * d + i] =
+      from_f32<O>(num / fmaxf(den, 1e-30f));
+}
+
+// Launch the split path for V = 1: q, out (B, H, d) contiguous in q's type
+// (q_dtype 0 float32, 1 bfloat16); part holds B * K * nsplit * G * (d + 2)
+// floats, nsplit = ceil(cap / kSplitRows). Refuses (cudaErrorInvalidValue)
+// what the path does not take: a head dim that is not a whole number of
+// 16-byte chunks or is above 256, more than 64 query rows per KV head or
+// 4096 accumulators of them. Every row must start 16-byte aligned (the
+// caller checks).
+template <typename Load, typename Rows>
+cudaError_t launch_decode_split(const void* q, const void* kc, const void* vc,
+                                const Rows& rows, const int* lengths,
+                                float* part, void* out, int B, int H, int K,
+                                int d, int nsplit, float scale, int q_dtype,
+                                cudaStream_t stream) {
+  using E = typename Load::Elem;
+  if (q_dtype != kF32 && q_dtype != kBF16) return cudaErrorInvalidValue;
+  if (K <= 0 || H % K || nsplit <= 0 || part == nullptr)
+    return cudaErrorInvalidValue;
+  const int G = H / K;
+  if (d % Load::kVec || d > 256 || G > kMaxRows ||
+      G * d > kThreads * kMaxAcc)
+    return cudaErrorInvalidValue;
+  const int smem = split_smem_bytes<E>(G, d);
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_split_kernel<Load, Rows>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const bool q_bf16 = q_dtype == kBF16;
+  decode_split_kernel<Load, Rows><<<dim3(K, B, nsplit), kThreads, smem,
+                                    stream>>>(
+      q, static_cast<const E*>(kc), static_cast<const E*>(vc), rows, lengths,
+      part, H, K, d, scale, q_bf16);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // programmatic dependent launch: the merge is scheduled while the split
+  // grid runs and waits for it in griddepcontrol.wait
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K, B, (G * d + kThreads - 1) / kThreads);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float* pc = part;
+  if (q_bf16)
+    return cudaLaunchKernelEx(&cfg, decode_merge_kernel<__nv_bfloat16>, pc,
+                              static_cast<__nv_bfloat16*>(out), H, K, d,
+                              nsplit);
+  return cudaLaunchKernelEx(&cfg, decode_merge_kernel<float>, pc,
+                            static_cast<float*>(out), H, K, d, nsplit);
 }
 
 }  // namespace

@@ -1,2 +1,4 @@
-from repro_torch.kernels.gqa_decode.ops import gqa_decode  # noqa: F401
-from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref  # noqa: F401
+from repro_torch.kernels.gqa_decode.ops import (  # noqa: F401
+    SPLIT_ROWS, gqa_decode, num_splits)
+from repro_torch.kernels.gqa_decode.ref import (  # noqa: F401
+    gqa_decode_ref, gqa_decode_split_ref)

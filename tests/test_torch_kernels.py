@@ -304,3 +304,82 @@ def test_dense_decode_kernel_matches_plain_version_on_card():
             want = gqa_decode_ref(q, kc, vc, lens)
             assert got.dtype == qd
             assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,K,d", [(12, 2, 128), (25, 25, 64)])
+def test_flash_tensor_core_kernel_on_card(H, K, d):
+    """The bf16 tensor-core prefill kernel at ragged S against its mirror
+    (within one bf16 step at the output's largest magnitude, and each
+    element within one bf16 step of the mirror's plus MIRROR_ATOL)
+    and the float32 plain version (the bf16 tolerance, 1e-2); row r of a
+    prompt equals row r of a longer prompt with the same prefix, bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import (
+        MIRROR_ATOL, bf16_excess, bf16_step, flash_attention_bf16_mirror_ref,
+        variant)
+    rng = np.random.default_rng(d)
+    S2 = 333
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, S2, h, d)).astype(
+        np.float32)).to("cuda", torch.bfloat16) for h in (H, K, K))
+    assert variant(q) == "tensor-core"
+    for S in (1, 17, 64, 100, S2):
+        got = flash_attention(q[:, :S], k[:, :S], v[:, :S])
+        mirror = flash_attention_bf16_mirror_ref(q[:, :S], k[:, :S],
+                                                 v[:, :S])
+        assert (got.float() - mirror.float()).abs().max().item() <= bf16_step(
+            mirror).max().item()
+        assert bf16_excess(got, mirror) <= MIRROR_ATOL
+        ref = flash_attention_ref(q[:, :S].float(), k[:, :S].float(),
+                                  v[:, :S].float())
+        assert (got.float() - ref).abs().max().item() <= 1e-2
+    long = flash_attention(q, k, v)
+    for S1 in (17, 100, 200):
+        short = flash_attention(q[:, :S1], k[:, :S1], v[:, :S1])
+        assert torch.equal(long[:, :S1], short)
+
+
+@pytest.mark.gpu
+def test_split_decode_kernel_on_card():
+    """`gqa_decode`'s split path against the plain version and the split
+    mirror at B 8 and B 1 (float32 2e-5, bf16 1e-2), through the (B, K, T,
+    d) view of a (B, T, K, d) cache, at T 640 (10 splits) and T 1100 (18
+    splits: the merge reads two chunks of 16), with lengths on both sides
+    of split and chunk boundaries; each batch-1 call on one sequence gives
+    that sequence's batch-8 row bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.gqa_decode import (SPLIT_ROWS, gqa_decode,
+                                                gqa_decode_ref,
+                                                gqa_decode_split_ref)
+    rng = np.random.default_rng(9)
+    for H, K, d, T, lengths in [
+            (12, 2, 128, 640, [0, 1, 64, 65, 300, 639, 640, 647]),
+            (25, 25, 64, 640, [0, 1, 64, 65, 300, 639, 640, 647]),
+            (12, 2, 128, 1100, [0, 700, 1023, 1024, 1025, 1090, 1100, 1107])]:
+        q = torch.from_numpy(rng.standard_normal((8, H, d)).astype(
+            np.float32)).cuda()
+        k, v = (torch.from_numpy(rng.standard_normal((8, T, K, d)).astype(
+            np.float32)).cuda() for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32).cuda()
+        for dt, tol in ((torch.float32, ATOL), (torch.bfloat16, 1e-2)):
+            kc, vc = k.to(dt).transpose(1, 2), v.to(dt).transpose(1, 2)
+            qd = q.to(dt)
+            got = gqa_decode(qd, kc, vc, lens)
+            for want in (gqa_decode_ref(q, kc, vc, lens),
+                         gqa_decode_split_ref(q, kc, vc, lens, SPLIT_ROWS)):
+                assert (got.float() - want.float()).abs().max().item() <= tol
+            assert not got[0].any()
+            for b in range(8):
+                one = gqa_decode(qd[b:b + 1], kc[b:b + 1], vc[b:b + 1],
+                                 lens[b:b + 1])
+                assert torch.equal(one, got[b:b + 1]), b
+    # a view whose rows are not 16-byte aligned is copied, not refused
+    kc, vc = (torch.zeros(x.numel() + 1, device="cuda")[1:].view_as(x)
+              .copy_(x).transpose(1, 2) for x in (k, v))
+    assert kc.data_ptr() % 16
+    assert torch.equal(gqa_decode(q, kc, vc, lens),
+                       gqa_decode(q, k.transpose(1, 2), v.transpose(1, 2),
+                                  lens))
