@@ -14,9 +14,12 @@ its plain PyTorch version at its path's shapes, and checks that each path
 launched its kernels (launch counts are set to 0 just before a path and
 read just after it). The bf16 tensor-core prefill kernel is also held to
 its mirror and to equal rows for a shorter prompt, and the split dense
-decode kernel to its mirror and to equal rows at batch 1 and 8; both also
-get device times from a CUDA graph, beside one SDPA call's. Each phase
-prints one JSON line; the last three lines
+and int8 paged decode kernels to their split mirrors and to equal rows at
+batch 1 and 8; the int8 matmul's int32 accumulators are held exactly and
+its output bit for bit. Prefill, dense decode, paged decode and the int8
+matmul also get device times from a CUDA graph, beside one library call's
+where there is one (SDPA, `torch._int_mm`). Each phase prints one JSON
+line; the last three lines
 are the kernel summary, the card's `nvidia-smi` name and power limit, then
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
@@ -136,10 +139,10 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
 
 
 def timed(fn, lib) -> dict:
-    """The times of the tensor-core prefill and split decode kernels and of
-    their SDPA yardstick: CUDA events around one call, host launch overhead
-    included, as every row is timed (`ms`, `library_ms`), and device time
-    per call from a CUDA graph (`device_ms`, `library_device_ms`)."""
+    """The times of a kernel and of its one-call library yardstick: CUDA
+    events around one call, host launch overhead included, as every row is
+    timed (`ms`, `library_ms`), and device time per call from a CUDA graph
+    (`device_ms`, `library_device_ms`)."""
     return dict(ms=cuda_ms(fn), library_ms=cuda_ms(lib),
                 device_ms=graph_ms(fn), library_device_ms=graph_ms(lib))
 
@@ -240,11 +243,12 @@ def kernel_phase(gen) -> dict:
         row = decode_row(f"{tag} int8", c, paged_gqa_decode_quant,
                          paged_gqa_decode_quant_ref, args, lens, 1,
                          scale_bytes=4)
+        out = paged_gqa_decode_quant(*args)
         mirror = paged_gqa_decode_quant_mirror_ref(*args)
-        row["max_abs_err_mirror"] = max_err(paged_gqa_decode_quant(*args),
-                                            mirror)
+        row["max_abs_err_mirror"] = max_err(out, mirror)
         check(row["max_abs_err_mirror"] <= TOL[dtype],
               f"int8 decode {tag} vs mirror: {row['max_abs_err_mirror']}")
+        row.update(quant_split_checks(tag, out, args))
         rows.setdefault("paged_gqa_decode_quant", []).append(row)
 
     # prefill attention at the serve's longest and a ragged prompt
@@ -453,9 +457,45 @@ def dense_row(gen, tag, c, lengths, dtype) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
+def quant_split_checks(tag, out, args) -> dict:
+    """Kernel 5's split-context path against its split mirror, element by
+    element (float32 within TOL; bf16 within one bf16 step of the mirror's
+    element plus MIRROR_ATOL), and each slot's batch-1 call against its row
+    of the batch-8 call, at the same table width (0.0)."""
+    from repro_torch.kernels.flash_attention import MIRROR_ATOL, bf16_excess
+    from repro_torch.kernels.gqa_decode import SPLIT_ROWS, num_splits
+    from repro_torch.kernels.paged_gqa_decode import (
+        paged_gqa_decode_quant, paged_gqa_decode_quant_split_ref)
+    q, table = args[0], args[5]
+    split = paged_gqa_decode_quant_split_ref(*args)
+    batch1 = max(max_err(out[b:b + 1], paged_gqa_decode_quant(
+        q[b:b + 1], *args[1:5], table[b:b + 1], args[6][b:b + 1]))
+        for b in range(q.shape[0]))
+    torch.cuda.synchronize()
+    got = dict(variant=f"split: split_rows {SPLIT_ROWS}, nsplit "
+               f"{num_splits(table.shape[1] * PAGE_SIZE)}",
+               max_abs_err_split_mirror=max_err(out, split),
+               batch_invariance_max_abs_diff=batch1)
+    if q.dtype == torch.bfloat16:
+        got.update(split_mirror_excess=bf16_excess(out, split),
+                   mirror_tolerance=MIRROR_ATOL)
+        check(got["split_mirror_excess"] <= MIRROR_ATOL,
+              f"int8 decode {tag} vs its split mirror: an element strays "
+              f"{got['split_mirror_excess']} beyond one bf16 step")
+    else:
+        check(got["max_abs_err_split_mirror"] <= TOL[q.dtype],
+              f"int8 decode {tag} vs its split mirror: "
+              f"{got['max_abs_err_split_mirror']}")
+    check(batch1 == 0.0, f"int8 decode {tag}: batch-1 rows differ from the "
+          f"batch-{q.shape[0]} call by {batch1}")
+    return got
+
+
 def decode_row(tag, c, fn, ref, args, lens, pool_isz, scale_bytes=0):
-    """One decode kernel against its plain version (on float32 copies of
-    q) at one case; the tolerance is q's dtype's."""
+    """One paged decode kernel against its plain version (on float32 copies
+    of q) at one case; the tolerance is q's dtype's. Times: CUDA events
+    around one call (`ms`) and device time from a CUDA graph
+    (`device_ms`)."""
     q = args[0]
     out = fn(*args)
     want = ref(q.float(), *args[1:])
@@ -472,6 +512,7 @@ def decode_row(tag, c, fn, ref, args, lens, pool_isz, scale_bytes=0):
                 f"ctx{ctx}", arch=tag, dtype=str(q.dtype),
                 max_abs_err=err, tolerance=TOL[q.dtype],
                 ms=cuda_ms(lambda: fn(*args)),
+                device_ms=graph_ms(lambda: fn(*args)),
                 plain_ms=cuda_ms(lambda: ref(*args), reps=5),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -479,14 +520,15 @@ def decode_row(tag, c, fn, ref, args, lens, pool_isz, scale_bytes=0):
 def int8_mm_row(gen, M, K, N) -> dict:
     """The int8 matmul at one FFN shape, on operands quantized as the int8
     SwiGLU quantizes them: the int32 accumulators equal the plain version's
-    exactly, the scaled output within float32's TOL (bit-equal expected).
-    The library yardstick is `torch._int_mm` plus the same epilogue."""
+    exactly, the scaled output within float32's TOL and bit for bit. The
+    library yardstick is `torch._int_mm` plus the same epilogue, timed as
+    the kernel is: CUDA events around one call and a CUDA graph."""
     from repro_torch.kernels.int8_matmul import (int8_matmul,
                                                  int8_matmul_acc,
                                                  int8_matmul_acc_ref,
                                                  int8_matmul_ref,
                                                  quantize_cols,
-                                                 quantize_rows)
+                                                 quantize_rows, split_k)
     x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn((K, N), generator=gen, device="cuda") * 0.02).to(
         torch.bfloat16)
@@ -498,18 +540,23 @@ def int8_mm_row(gen, M, K, N) -> dict:
           "accumulators differ from the plain version")
     err = max_err(out, want)
     check(err <= TOL[torch.float32], f"int8 matmul {M}x{K}x{N}: {err}")
+    check(bool(torch.equal(out, want)), f"int8 matmul {M}x{K}x{N}: output "
+          "not bit-equal to the plain version's")
     nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
     b_ms, b_by = bound(nbytes, 2.0 * M * K * N, torch.int8)
+    splits = split_k(M, N, K, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     return dict(shape=f"M{M} K{K} N{N}", dtype="int8", max_abs_err=err,
-                bit_equal=bool(torch.equal(out, want)),
-                tolerance="int32 accumulators exact, output 2e-5",
-                ms=cuda_ms(lambda: int8_matmul(xq, wq, sx, sw)),
+                bit_equal=True,
+                tolerance="int32 accumulators exact, output bit for bit",
+                variant=f"mma.sync m16n8k32 s8, 128 x 128 tiles, split_k "
+                f"{splits}",
+                # the yardstick only: the port never calls torch._int_mm
+                **timed(lambda: int8_matmul(xq, wq, sx, sw),
+                        lambda: torch._int_mm(xq, wq).float() * sx * sw),
                 plain_ms=cuda_ms(lambda: int8_matmul_ref(xq, wq, sx, sw),
                                  reps=5),
-                bound_ms=b_ms, bound_by=b_by,
-                # the yardstick only: the port never calls torch._int_mm
-                library_ms=cuda_ms(
-                    lambda: torch._int_mm(xq, wq).float() * sx * sw))
+                bound_ms=b_ms, bound_by=b_by)
 
 
 # -------------------------------------------------------------- bank kernels

@@ -16,7 +16,8 @@
 // does about 4 * R * d flops per row, a few flops per byte, so it is bound
 // by bytes. Two paths share the load and row-addressing policies:
 //
-// The unsplit path (decode_attention_kernel; paged decode, verification):
+// The unsplit path (decode_attention_kernel; paged decode of float and fp8
+// pools, verification):
 //   * one block per (KV head, sequence), walking the context in tiles of 32
 //     rows up to the widest window row's horizon;
 //   * the R query rows share each row load: a warp loads one K row into
@@ -32,18 +33,27 @@
 //     dimensions.
 //   Only K x B blocks run (16 for dsr1d at 8 sequences, 2 at one).
 //
-// The split-context path (decode_split_kernel + decode_merge_kernel; dense
-// decode, V = 1, float caches):
+// The split-context path (decode_split_kernel + decode_merge_kernel; V = 1:
+// dense decode of float caches, and paged decode of int8 pools with per-row
+// scales):
 //   * a grid of (KV head, sequence, split): split s walks the fixed rows
 //     [s * kSplitRows, (s + 1) * kSplitRows), and the split count,
-//     ceil(T / kSplitRows), depends on the cache length only, so a
-//     sequence's arithmetic does not depend on the batch beside it;
-//   * the split's K and V rows are copied to shared memory with 16-byte
-//     cp.async copies issued together with the query and length loads
-//     (rows past the cache zero-filled), in rows padded by 16 bytes;
+//     ceil(cap / kSplitRows) for the cache's (or page table's) row capacity
+//     cap, depends on the cache's shape only, never on the lengths (which
+//     live on the device), so a sequence's arithmetic does not depend on
+//     the batch beside it;
+//   * the split's valid K and V rows (and for int8 their scales) are copied
+//     to shared memory with cp.async copies issued together with the query
+//     loads, in rows padded by 16 bytes; rows past the sequence are
+//     zero-filled, not read. A row's address does not wait on the length:
+//     rows past the capacity are clamped to its last row, so a slot whose
+//     table points at the null page reads only in-bounds rows;
 //   * each thread scores whole K rows against its query rows (no sums
 //     across lanes), one warp per query row takes the split's softmax, and
-//     P V runs over slices of the rows so that every thread works;
+//     P V runs over slices of the rows so that every thread works. An int8
+//     row's scales enter once per row: the score is the dot product with
+//     the codes times the K scale, and P V weighs the codes of V row r by
+//     p_r times its V scale (the denominator sums p_r alone);
 //   * each split writes a float32 partial (m, l, acc) of its rows to a
 //     workspace the caller allocates; a split wholly past lengths[b]
 //     writes m = -1e30, l = 0, acc = 0;
@@ -52,7 +62,10 @@
 //     fixed order 0, 1, ..., one thread per output element: weights
 //     exp(m_s - max m), 0 for an empty split, so it drops out exactly; the
 //     denominator clamped at 1e-30.
-// Moving paged decode and verification onto the split path is later work.
+// Paged decode of float and fp8 pools (kernel 1) and verification (kernel
+// 6) stay on the unsplit path, where verify row v computes exactly what
+// kernel 1 computes at lengths[b] + v + 1; they move to the split path
+// together.
 
 #pragma once
 
@@ -122,8 +135,8 @@ struct Unpack16<__half> {
 };
 
 // Load policies: the cache's element type, its float32 value, and whether
-// each row carries a float32 scale; float caches also unpack 16 bytes
-// (kVec elements) at once for the split path.
+// each row carries a float32 scale (int8, split path only); float and int8
+// caches also unpack 16 bytes (kVec elements) at once for the split path.
 template <typename E>
 struct LoadFloat {
   using Elem = E;
@@ -146,14 +159,22 @@ struct LoadE4M3 {
 struct LoadInt8 {
   using Elem = signed char;
   static constexpr bool kScaled = true;
-  static __device__ __forceinline__ float get(const Elem* p, long long i) {
-    return static_cast<float>(p[i]);
+  static constexpr int kVec = 16;
+  // 16 int8 codes as float32 (exact), the lowest address first
+  static __device__ __forceinline__ void vec(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[4 * i + j] = static_cast<float>(
+            static_cast<signed char>((w[i] >> (8 * j)) & 0xFFu));
   }
 };
 
 // Row-addressing policies. row() names row t of (sequence b, KV head kh):
-// its index in the scales' row space (scaled loads only), from which
-// elem() gives the element offset of its first element; cap() is the
+// its index in the scales' row space (scaled loads, split path), from
+// which elem() gives the element offset of its first element; cap() is the
 // number of rows a sequence can address.
 struct PagedRows {  // pools (N, K, ps, d) through a (B, P) page table
   const int* table;
@@ -186,16 +207,14 @@ __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const void* __restrict__ q,
                         const typename Load::Elem* __restrict__ kc,
                         const typename Load::Elem* __restrict__ vc,
-                        const float* __restrict__ kscale,
-                        const float* __restrict__ vscale, const Rows rows,
+                        const Rows rows,
                         const int* __restrict__ lengths,
                         void* __restrict__ out, int H, int K, int d, int V,
                         int len_add, float scale, bool q_bf16) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = H / K, R = V * G;
   long long* row_off = reinterpret_cast<long long*>(smem_raw);  // kTile
-  float* vs_sh = reinterpret_cast<float*>(row_off + kTile);     // kTile
-  float* q_sh = vs_sh + kTile;     // R * d
+  float* q_sh = reinterpret_cast<float*>(row_off + kTile);      // R * d
   float* w_sh = q_sh + R * d;      // R * kTile: scores, then weights
   float* m_sh = w_sh + R * kTile;  // R
   float* l_sh = m_sh + R;          // R
@@ -234,21 +253,13 @@ decode_attention_kernel(const void* __restrict__ q,
       if (r < n) {
         const int t = t0 + r;
         const int first = max(0, (t - base + 1) * G);
-        const long long row = rows.row(b, kh, t);
-        const long long off = rows.elem(row, d);
-        float ks = 1.f;
-        if constexpr (Load::kScaled) ks = kscale[row];
-        if (lane == 0) {
-          row_off[r] = off;
-          if constexpr (Load::kScaled) vs_sh[r] = vscale[row];
-        }
+        const long long off = rows.elem(rows.row(b, kh, t), d);
+        if (lane == 0) row_off[r] = off;
         float kf[DC];
 #pragma unroll
         for (int i = 0; i < DC; ++i) {
           const int c = lane + 32 * i;
-          float x = c < d ? Load::get(kc, off + c) : 0.f;
-          if constexpr (Load::kScaled) x *= ks;
-          kf[i] = x;
+          kf[i] = c < d ? Load::get(kc, off + c) : 0.f;
         }
         if (lane == 0)
           for (int g = 0; g < min(first, R); ++g) w_sh[g * kTile + r] = kNegInf;
@@ -291,11 +302,7 @@ decode_attention_kernel(const void* __restrict__ q,
         const int g = idx / d, c = idx - g * d;
         float a = acc[j] * c_sh[g];
         const float* w = w_sh + g * kTile;
-        for (int r = 0; r < n; ++r) {
-          float x = Load::get(vc, row_off[r] + c);
-          if constexpr (Load::kScaled) x *= vs_sh[r];
-          a += w[r] * x;
-        }
+        for (int r = 0; r < n; ++r) a += w[r] * Load::get(vc, row_off[r] + c);
         acc[j] = a;
       }
     }
@@ -324,8 +331,7 @@ decode_attention_kernel(const void* __restrict__ q,
 // V * H / K * d > 4096) the kernel does not take.
 template <typename Load, typename Rows>
 cudaError_t launch_decode_attention(const void* q, const void* kc,
-                                    const void* vc, const float* ks,
-                                    const float* vs, const Rows& rows,
+                                    const void* vc, const Rows& rows,
                                     const int* lengths, void* out, int B,
                                     int H, int K, int d, int V, int len_add,
                                     float scale, int q_dtype,
@@ -336,8 +342,9 @@ cudaError_t launch_decode_attention(const void* q, const void* kc,
   if (R > kMaxRows || R * d > kThreads * kMaxAcc || d > 256)
     return cudaErrorInvalidValue;
   const dim3 grid(K, B);
+  static_assert(!Load::kScaled, "scaled rows take the split path");
   const size_t smem = kTile * sizeof(long long) +
-                      (kTile + R * d + R * kTile + 3 * R) * sizeof(float);
+                      (R * d + R * kTile + 3 * R) * sizeof(float);
   using E = typename Load::Elem;
   const E* kp = static_cast<const E*>(kc);
   const E* vp = static_cast<const E*>(vc);
@@ -345,7 +352,7 @@ cudaError_t launch_decode_attention(const void* q, const void* kc,
   // head dims up to 64, 128 and 256: lanes past d are masked
 #define TRAPTI_ATTEND(DC)                                                   \
   decode_attention_kernel<Load, Rows, DC><<<grid, kThreads, smem, stream>>>( \
-      q, kp, vp, ks, vs, rows, lengths, out, H, K, d, V, len_add, scale,    \
+      q, kp, vp, rows, lengths, out, H, K, d, V, len_add, scale,            \
       q_bf16)
   if (d <= 64) TRAPTI_ATTEND(2);
   else if (d <= 128) TRAPTI_ATTEND(4);
@@ -377,20 +384,31 @@ __device__ __forceinline__ void copy16_async(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
 }
+// the same for one float
+__device__ __forceinline__ void copy4_async(float* dst, const float* src,
+                                            bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
 
 // Shared memory of the split kernel: the K and V rows (padded by 16 bytes
 // so that threads reading consecutive rows hit distinct banks), the scaled
-// query rows, the scores (then weights), and P V's partial sums.
+// query rows, the scores (then weights), P V's partial sums, and for
+// scaled loads the rows' K and V scales.
 template <typename E>
 __host__ __device__ constexpr int split_row_ld(int d) {
   return d + 16 / static_cast<int>(sizeof(E));
 }
-template <typename E>
+template <typename Load>
 __host__ __device__ inline int split_smem_bytes(int G, int d) {
-  const int vec = 16 / static_cast<int>(sizeof(E));
-  const int red = kThreads * vec > G * d ? kThreads * vec : G * d;
+  using E = typename Load::Elem;
+  const int red = kThreads * Load::kVec > G * d ? kThreads * Load::kVec
+                                                : G * d;
+  const int scales = Load::kScaled ? 2 * kSplitRows : 0;
   return 2 * kSplitRows * split_row_ld<E>(d) * static_cast<int>(sizeof(E)) +
-         (G * d + G * kSplitRows + red) * static_cast<int>(sizeof(float));
+         (G * d + G * kSplitRows + red + scales) *
+             static_cast<int>(sizeof(float));
 }
 
 template <typename Load, typename Rows>
@@ -398,7 +416,9 @@ __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const void* __restrict__ q,
                     const typename Load::Elem* __restrict__ kc,
                     const typename Load::Elem* __restrict__ vc,
-                    const Rows rows, const int* __restrict__ lengths,
+                    const float* __restrict__ kscale,
+                    const float* __restrict__ vscale, const Rows rows,
+                    const int* __restrict__ lengths,
                     float* __restrict__ part, int H, int K, int d,
                     float scale, bool q_bf16) {
   using E = typename Load::Elem;
@@ -410,24 +430,33 @@ decode_split_kernel(const void* __restrict__ q,
   float* q_sh = reinterpret_cast<float*>(v_sh + kSplitRows * ld);  // G x d
   float* w_sh = q_sh + G * d;  // G x 64: scores, then weights
   float* red_sh = w_sh + G * kSplitRows;  // max(256 kVec, G d)
+  float* ks_sh = red_sh + (kThreads * kVec > G * d ? kThreads * kVec : G * d);
+  float* vs_sh = ks_sh + kSplitRows;  // scaled loads: 64 + 64
 
   // the merge launch may start; it waits for this grid to finish
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x;
   const int t0 = split * kSplitRows;
-  const int in_cache = min(kSplitRows, rows.cap() - t0);
+  const int last = min(kSplitRows, rows.cap() - t0) - 1;  // >= 0
+  const int n = min(last + 1, lengths[b] - t0);  // the split's valid rows
 
   // Every global load is issued before any is waited on: the split's K/V
-  // rows that lie in the cache, copied to shared memory (rows past the
-  // cache zero-filled; rows past the sequence are masked below), the
-  // query rows and the length.
+  // rows that the sequence holds, copied to shared memory (the others
+  // zero-filled and masked below; addresses clamped to the cache, so they
+  // do not wait on the length), their scales, and the query rows.
   for (int i = tid; i < kSplitRows * nch; i += kThreads) {
     const int r = i / nch, c = (i - r * nch) * kVec;
-    const bool ok = r < in_cache;
-    const long long off = ok ? rows.elem(rows.row(b, kh, t0 + r), d) + c : 0;
-    copy16_async(k_sh + r * ld + c, kc + off, ok);
-    copy16_async(v_sh + r * ld + c, vc + off, ok);
+    const long long off = rows.elem(rows.row(b, kh, t0 + min(r, last)), d) + c;
+    copy16_async(k_sh + r * ld + c, kc + off, r < n);
+    copy16_async(v_sh + r * ld + c, vc + off, r < n);
+  }
+  if constexpr (Load::kScaled) {
+    if (tid < kSplitRows) {
+      const long long row = rows.row(b, kh, t0 + min(tid, last));
+      copy4_async(ks_sh + tid, kscale + row, tid < n);
+      copy4_async(vs_sh + tid, vscale + row, tid < n);
+    }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   const size_t q0 = (static_cast<size_t>(b) * H + kh * G) * d;
@@ -439,7 +468,6 @@ decode_split_kernel(const void* __restrict__ q,
             : q_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(q)[q0 + i])
                      : static_cast<const float*>(q)[q0 + i];
   }
-  const int n = min(in_cache, lengths[b] - t0);  // the split's valid rows
   float* pm = part + partial_offset(b, kh, split, K, gridDim.z, G, d);
   if (n <= 0) {  // wholly past the sequence: drops out of the merge
     for (int i = tid; i < G; i += kThreads) {
@@ -486,13 +514,15 @@ decode_split_kernel(const void* __restrict__ q,
       float sum = a[0];
 #pragma unroll
       for (int e = 1; e < kVec; ++e) sum += a[e];
+      if constexpr (Load::kScaled) sum *= ks_sh[r];
       w_sh[g * kSplitRows + r] = r < n ? sum : kNegInf;
     }
   }
   __syncthreads();
 
   // the split's softmax: warp w takes query rows w, w + 8, ...; lane j
-  // holds rows j and j + 32
+  // holds rows j and j + 32. P V's weights are p (times the row's V scale
+  // for scaled loads); l sums p.
   const int lane = tid & 31, warp = tid >> 5;
   for (int g = warp; g < G; g += kWarps) {
     float* w = w_sh + g * kSplitRows;
@@ -501,8 +531,13 @@ decode_split_kernel(const void* __restrict__ q,
     const float p0 = s0 <= kNegInf / 2 ? 0.f : expf(s0 - m);
     const float p1 = s1 <= kNegInf / 2 ? 0.f : expf(s1 - m);
     const float l = warp_sum(p0 + p1);
-    w[lane] = p0;
-    w[lane + 32] = p1;
+    if constexpr (Load::kScaled) {
+      w[lane] = p0 * vs_sh[lane];
+      w[lane + 32] = p1 * vs_sh[lane + 32];
+    } else {
+      w[lane] = p0;
+      w[lane + 32] = p1;
+    }
     if (lane == 0) {
       pm[g] = m;
       pm[G + g] = l;
@@ -602,27 +637,30 @@ decode_merge_kernel(const float* __restrict__ part, O* __restrict__ out,
 }
 
 // Launch the split path for V = 1: q, out (B, H, d) contiguous in q's type
-// (q_dtype 0 float32, 1 bfloat16); part holds B * K * nsplit * G * (d + 2)
-// floats, nsplit = ceil(cap / kSplitRows). Refuses (cudaErrorInvalidValue)
-// what the path does not take: a head dim that is not a whole number of
-// 16-byte chunks or is above 256, more than 64 query rows per KV head or
-// 4096 accumulators of them. Every row must start 16-byte aligned (the
-// caller checks).
+// (q_dtype 0 float32, 1 bfloat16); ks, vs the per-row scales of a scaled
+// load (else null); part holds B * K * nsplit * G * (d + 2) floats,
+// nsplit = ceil(cap / kSplitRows). Refuses (cudaErrorInvalidValue) what the
+// path does not take: a head dim that is not a whole number of 16-byte
+// chunks or is above 256, more than 64 query rows per KV head or 4096
+// accumulators of them, a scaled load without scales. Every row must start
+// 16-byte aligned (the caller checks).
 template <typename Load, typename Rows>
 cudaError_t launch_decode_split(const void* q, const void* kc, const void* vc,
+                                const float* ks, const float* vs,
                                 const Rows& rows, const int* lengths,
                                 float* part, void* out, int B, int H, int K,
                                 int d, int nsplit, float scale, int q_dtype,
                                 cudaStream_t stream) {
   using E = typename Load::Elem;
   if (q_dtype != kF32 && q_dtype != kBF16) return cudaErrorInvalidValue;
-  if (K <= 0 || H % K || nsplit <= 0 || part == nullptr)
+  if (K <= 0 || H % K || nsplit <= 0 || part == nullptr ||
+      (Load::kScaled && (ks == nullptr || vs == nullptr)))
     return cudaErrorInvalidValue;
   const int G = H / K;
   if (d % Load::kVec || d > 256 || G > kMaxRows ||
       G * d > kThreads * kMaxAcc)
     return cudaErrorInvalidValue;
-  const int smem = split_smem_bytes<E>(G, d);
+  const int smem = split_smem_bytes<Load>(G, d);
   cudaError_t err = cudaFuncSetAttribute(
       decode_split_kernel<Load, Rows>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -630,8 +668,8 @@ cudaError_t launch_decode_split(const void* q, const void* kc, const void* vc,
   const bool q_bf16 = q_dtype == kBF16;
   decode_split_kernel<Load, Rows><<<dim3(K, B, nsplit), kThreads, smem,
                                     stream>>>(
-      q, static_cast<const E*>(kc), static_cast<const E*>(vc), rows, lengths,
-      part, H, K, d, scale, q_bf16);
+      q, static_cast<const E*>(kc), static_cast<const E*>(vc), ks, vs, rows,
+      lengths, part, H, K, d, scale, q_bf16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // programmatic dependent launch: the merge is scheduled while the split

@@ -43,8 +43,8 @@ TRAPTI_EXPORT int gqa_decode_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
 #define TRAPTI_DENSE(LOAD)                                               \
-  launch_decode_split<LOAD>(q, k, v, rows, lens, part, out, B, H, K, d,  \
-                            nsplit, scale, q_dtype, s)
+  launch_decode_split<LOAD>(q, k, v, nullptr, nullptr, rows, lens, part, \
+                            out, B, H, K, d, nsplit, scale, q_dtype, s)
   if (cache_dtype == kF32) err = TRAPTI_DENSE(LoadFloat<float>);
   else if (cache_dtype == kBF16) err = TRAPTI_DENSE(LoadFloat<__nv_bfloat16>);
   else if (cache_dtype == kF16) err = TRAPTI_DENSE(LoadFloat<__half>);

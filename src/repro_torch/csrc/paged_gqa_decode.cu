@@ -10,25 +10,32 @@
 //     to float32 in its body; kv_dtype="fp32" under a bf16 model gives
 //     this mix). Entry point paged_gqa_decode_fwd.
 //   * paged_gqa_decode_quant_kernel (_paged_decode_quant_kernel): the same
-//     control flow and accumulator math on int8 pools, each row multiplied
-//     by its float32 scale (pools (N, K, ps) of scales, reached through the
-//     same page-table indirection as the row) in registers before use.
-//     Entry point paged_gqa_decode_quant_fwd.
-// Both run decode_attention.cuh's kernel with one window row (V = 1) and
-// page-table addressing: a load policy turns a pool element into float32
-// (and says whether rows carry a scale). The query's type is a run-time
-// argument: q is read once and the output written once per block, outside
-// the loops, so templating on it would only double the build.
+//     function on int8 pools, each row carrying a float32 scale (pools
+//     (N, K, ps) of scales, reached through the same page-table
+//     indirection as the row). Entry point paged_gqa_decode_quant_fwd.
+// Both run decode_attention.cuh with one window row (V = 1) and page-table
+// addressing: a load policy turns a pool element into float32 (and says
+// whether rows carry a scale). The query's type is a run-time argument: q
+// is read once and the output written once per block, outside the loops,
+// so templating on it would only double the build.
 //
 // Bound on the H100: each call reads every resident K and V row once
 // (2 * lengths * K * d elements per slot, plus 2 scales per row for int8)
 // and does about 4 * H * d flops per row, a few flops per byte, so it is
-// bound by bytes. The block reads the slot's page-table row itself (the TPU
-// scalar-prefetched it) and walks the context in tiles of 32 rows up to
-// lengths[b] (clamped to the table, so a slot that points at the null page
-// 0 reads only in-bounds rows). The whole GQA group of the KV head shares
-// each row load. Only 16 blocks run for 8 slots x 2 KV heads (dsr1d), so the
-// kernel is far from its bound at the main path's batch.
+// bound by bytes. Each block reads the page-table entries of its rows
+// itself (the TPU scalar-prefetched them).
+//   * Float and fp8 pools take the unsplit path: one block per (KV head,
+//     slot) walks the context in tiles of 32 rows up to lengths[b]
+//     (clamped to the table, so a slot that points at the null page 0
+//     reads only in-bounds rows), the GQA group sharing each row load.
+//     Only 16 blocks run for 8 slots x 2 KV heads (dsr1d), far from the
+//     bound; verification (kernel 6) shares this path, row for row.
+//   * int8 pools take the split-context path: ceil(P * ps / 64) blocks per
+//     (KV head, slot), each copying its 64 rows' codes and scales to shared
+//     memory, then a merge launch (144 + 16 blocks for dsr1d at 8 slots and
+//     a 576-row table). The split count comes from the table's width, not
+//     the lengths, which live on the device: no host sync, and a slot's
+//     result does not depend on the batch.
 #include "decode_attention.cuh"
 
 // q: (B, H, d) float32 (q_dtype 0) or bfloat16 (1); kp, vp: (N, K, ps, d)
@@ -46,8 +53,8 @@ TRAPTI_EXPORT int paged_gqa_decode_fwd(const void* q, const void* kp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
 #define TRAPTI_PAGED(LOAD)                                                  \
-  launch_decode_attention<LOAD>(q, kp, vp, nullptr, nullptr, rows, lens,    \
-                                out, B, H, K, d, 1, 0, scale, q_dtype, s)
+  launch_decode_attention<LOAD>(q, kp, vp, rows, lens, out, B, H, K, d, 1,  \
+                                0, scale, q_dtype, s)
   if (pool_dtype == kF32) err = TRAPTI_PAGED(LoadFloat<float>);
   else if (pool_dtype == kBF16) err = TRAPTI_PAGED(LoadFloat<__nv_bfloat16>);
   else if (pool_dtype == kF16) err = TRAPTI_PAGED(LoadFloat<__half>);
@@ -56,16 +63,21 @@ TRAPTI_EXPORT int paged_gqa_decode_fwd(const void* q, const void* kp,
   return static_cast<int>(err);
 }
 
-// As paged_gqa_decode_fwd with int8 pools kp, vp (N, K, ps, d) and their
-// per-row float32 scales ks, vs (N, K, ps).
+// As paged_gqa_decode_fwd with int8 pools kp, vp (N, K, ps, d), d a
+// multiple of 16 and every pool 16-byte aligned, and their per-row float32
+// scales ks, vs (N, K, ps); workspace: B * K * nsplit * (H / K) * (d + 2)
+// floats, where nsplit must be ceil(P * ps / 64).
 TRAPTI_EXPORT int paged_gqa_decode_quant_fwd(
     const void* q, const void* kp, const void* vp, const void* ks,
-    const void* vs, const void* table, const void* lengths, void* out, int B,
-    int H, int K, int d, int ps, int P, int N, float scale, int q_dtype,
-    void* stream) {
+    const void* vs, const void* table, const void* lengths, void* out,
+    void* workspace, int B, int H, int K, int d, int ps, int P, int N,
+    float scale, int q_dtype, int nsplit, void* stream) {
+  if (nsplit != (P * ps + kSplitRows - 1) / kSplitRows)
+    return static_cast<int>(cudaErrorInvalidValue);
   const PagedRows rows{static_cast<const int*>(table), ps, P, N, K};
-  return static_cast<int>(launch_decode_attention<LoadInt8>(
+  return static_cast<int>(launch_decode_split<LoadInt8>(
       q, kp, vp, static_cast<const float*>(ks), static_cast<const float*>(vs),
-      rows, static_cast<const int*>(lengths), out, B, H, K, d, 1, 0, scale,
-      q_dtype, static_cast<cudaStream_t>(stream)));
+      rows, static_cast<const int*>(lengths), static_cast<float*>(workspace),
+      out, B, H, K, d, nsplit, scale, q_dtype,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -41,8 +41,8 @@ TRAPTI_EXPORT int paged_gqa_verify_fwd(const void* q, const void* kp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
 #define TRAPTI_VERIFY(LOAD)                                                 \
-  launch_decode_attention<LOAD>(q, kp, vp, nullptr, nullptr, rows, lens,    \
-                                out, B, H, K, d, V, 1, scale, q_dtype, s)
+  launch_decode_attention<LOAD>(q, kp, vp, rows, lens, out, B, H, K, d, V,  \
+                                1, scale, q_dtype, s)
   if (pool_dtype == kF32) err = TRAPTI_VERIFY(LoadFloat<float>);
   else if (pool_dtype == kBF16) err = TRAPTI_VERIFY(LoadFloat<__nv_bfloat16>);
   else if (pool_dtype == kF16) err = TRAPTI_VERIFY(LoadFloat<__half>);

@@ -17,7 +17,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref
+from repro_torch.kernels.gqa_decode.ref import SPLIT_ROWS, gqa_decode_ref
 
 # dtype codes of csrc/common.cuh
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -27,8 +27,6 @@ MAX_HEAD_DIM = 256
 # csrc/decode_attention.cuh kMaxRows and kThreads * kMaxAcc
 MAX_ROWS = 64
 MAX_ROW_ELEMS = 4096
-# context rows per split block (csrc/decode_attention.cuh kSplitRows)
-SPLIT_ROWS = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

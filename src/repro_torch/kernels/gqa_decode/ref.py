@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1.0e30
+# context rows per split block (csrc/decode_attention.cuh kSplitRows)
+SPLIT_ROWS = 64
 
 
 def gqa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -36,15 +38,21 @@ def gqa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def gqa_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lengths: torch.Tensor,
-                         split_rows: int) -> torch.Tensor:
+                         lengths: torch.Tensor, split_rows: int,
+                         k_scale: torch.Tensor = None,
+                         v_scale: torch.Tensor = None) -> torch.Tensor:
     """The split-context arithmetic, arguments as `gqa_decode_ref`. Split s
     covers cache rows [s * split_rows, (s + 1) * split_rows); the split
     count, ceil(T / split_rows), depends on T only. Each split keeps a
     float32 partial (m, l, acc) of its valid rows; a split wholly past
     lengths[b] keeps m = -1e30, l = 0, acc = 0. The merge weighs split s by
     exp(m_s - max m) (0 where m_s <= -1e30 / 2) and sums in the fixed order
-    0, 1, ..., then divides by the summed l clamped at 1e-30."""
+    0, 1, ..., then divides by the summed l clamped at 1e-30.
+
+    Rows that carry scales (int8 codes in k, v with k_scale, v_scale of
+    shape (B, K, T)) enter as the kernel's scaled loads do: a score is the
+    dot product with the codes times the row's K scale, and acc sums the
+    codes of row r weighted by p_r times its V scale (l sums p_r)."""
     B, H, d = q.shape
     K, T = k.shape[1], k.shape[2]
     G = H // K
@@ -55,6 +63,9 @@ def gqa_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
     qs = q.float().reshape(B, K, G, d) * scale
     s = torch.einsum("bkgd,bknrd->bkgnr", qs, kf)
+    if k_scale is not None:
+        s = s * F.pad(k_scale.float(), pad[2:]).reshape(
+            B, K, 1, ns, split_rows)
     t = torch.arange(ns * split_rows, device=q.device).reshape(ns, split_rows)
     n = torch.clamp(lengths.to(q.device).long(), max=T)
     valid = (t[None] < n[:, None, None])[:, None, None]
@@ -63,6 +74,9 @@ def gqa_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - m[..., None])
     p = torch.where(s <= NEG_INF / 2, torch.zeros_like(p), p)
     l = p.sum(-1)
+    if v_scale is not None:
+        p = p * F.pad(v_scale.float(), pad[2:]).reshape(
+            B, K, 1, ns, split_rows)
     acc = torch.einsum("bkgnr,bknrd->bkgnd", p, vf)
     top = m.amax(-1, keepdim=True)
     w = torch.exp(m - top)

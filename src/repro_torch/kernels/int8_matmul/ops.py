@@ -4,10 +4,13 @@ hand-written CUDA kernel on the card, its plain version on the CPU.
 Replaces the reference's Pallas `int8_matmul_kernel`
 (`repro/kernels/int8_matmul/kernel.py`, body `_int8_mm_kernel`), which
 `quantized_linear` and the int8 FFN walkthrough
-(`repro_torch.examples.int8_serving`) run. Source: `csrc/int8_matmul.cu`."""
+(`repro_torch.examples.int8_serving`) run. Source: `csrc/int8_matmul.cu`
+(tensor-core tiles of 128 x 128; K split across blocks when the output has
+fewer tiles than the card has SMs)."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,7 +23,51 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = build.register(build.CudaKernel(
     "int8_matmul", "int8_matmul", "int8_matmul_fwd",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]))
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]))
+# output tile and k-tile of csrc/int8_matmul.cu (kBM, kBN, kBK)
+TILE, K_TILE = 128, 128
+# a block's cost beyond its k-tiles (filling the ring, the epilogue), in
+# k-tiles: an estimate that keeps split products from slicing K thinner
+# than their atomics are worth
+BLOCK_COST = 2
+
+
+def split_k(M: int, N: int, K: int, sms: int) -> int:
+    """Slices of K for an (M, K) x (K, N) product on a card of `sms` SMs,
+    which run one 128 x 128 output tile at a time each: 1 when the output
+    tiles fill the card (a split output costs a pass of int32 atomics),
+    else the count that minimises rounds of blocks x (k-tiles per slice +
+    BLOCK_COST), the fewest slices among equals; each slice is whole
+    128-byte k-tiles. The int32 sums are exact in any order, so the result
+    does not depend on the count."""
+    tiles = -(-M // TILE) * -(-N // TILE)
+    ktiles = -(-K // K_TILE)
+    if tiles >= sms:
+        return 1
+    return min(range(1, ktiles + 1),
+               key=lambda s: (-(-tiles * s // sms)
+                              * (-(-ktiles // s) + BLOCK_COST), s))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(x_q, w_q, sx, sw, out, acc):
+    """One kernel call; a split product sums into `acc` (allocated here for
+    a scaled product)."""
+    M, K = x_q.shape
+    N = w_q.shape[1]
+    splits = split_k(M, N, K, _sm_count(x_q.device.index or 0))
+    if acc is None and splits > 1:
+        acc = torch.empty((M, N), dtype=torch.int32, device=x_q.device)
+    KERNEL(build.ptr(x_q), build.ptr(w_q),
+           None if sx is None else build.ptr(sx),
+           None if sw is None else build.ptr(sw),
+           None if out is None else build.ptr(out),
+           None if acc is None else build.ptr(acc), M, N, K, splits,
+           build.stream_ptr(x_q))
 
 
 def _check(x_q: torch.Tensor, w_q: torch.Tensor):
@@ -51,8 +98,7 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
                          f"{sw.dtype} {tuple(sw.shape)}")
     sx, sw = sx.contiguous(), sw.contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=x_q.device)
-    KERNEL(build.ptr(x_q), build.ptr(w_q), build.ptr(sx), build.ptr(sw),
-           build.ptr(out), None, M, N, K, build.stream_ptr(x_q))
+    _launch(x_q, w_q, sx, sw, out, None)
     return out
 
 
@@ -63,11 +109,9 @@ def int8_matmul_acc(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     if x_q.device.type != "cuda":
         return int8_matmul_acc_ref(x_q, w_q)
     x_q, w_q = _check(x_q, w_q)
-    M, K = x_q.shape
-    N = w_q.shape[1]
-    acc = torch.empty((M, N), dtype=torch.int32, device=x_q.device)
-    KERNEL(build.ptr(x_q), build.ptr(w_q), None, None, None, build.ptr(acc),
-           M, N, K, build.stream_ptr(x_q))
+    acc = torch.empty((x_q.shape[0], w_q.shape[1]), dtype=torch.int32,
+                      device=x_q.device)
+    _launch(x_q, w_q, None, None, None, acc)
     return acc
 
 

@@ -10,7 +10,9 @@ pools with per-row float32 scales. The paged decode step calls one of them
 for every token of every layer. Both launch from
 `csrc/paged_gqa_decode.cu` (the kernel template is
 `csrc/decode_attention.cuh`), as two kernels with their own launch
-counts."""
+counts: `paged_gqa_decode` on the template's unsplit path, shared row for
+row with verification, and `paged_gqa_decode_quant` on its split-context
+path, as `gqa_decode` runs."""
 from __future__ import annotations
 
 import ctypes
@@ -19,6 +21,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.gqa_decode.ops import num_splits
 from repro_torch.kernels.paged_gqa_decode.ref import (
     paged_gqa_decode_quant_ref, paged_gqa_decode_ref)
 from repro_torch.kernels.quant import FP8_STORAGE_DTYPE
@@ -38,8 +41,8 @@ KERNEL = build.register(build.CudaKernel(
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]))
 QUANT_KERNEL = build.register(build.CudaKernel(
     "paged_gqa_decode_quant", "paged_gqa_decode", "paged_gqa_decode_quant_fwd",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-     _P]))
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+     _I, _P]))
 
 
 def check_paged(name, q, k_pages, v_pages, page_table, lengths):
@@ -103,8 +106,17 @@ def paged_gqa_decode_quant(q: torch.Tensor, k_pages: torch.Tensor,
                            v_scale: torch.Tensor, page_table: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
     """int8-page variant: k_pages, v_pages (N, K, ps, d) int8 with per-row
-    float32 scales k_scale, v_scale (N, K, ps), dequantized in registers;
-    otherwise as `paged_gqa_decode`. -> (B, H, d) in q's dtype."""
+    float32 scales k_scale, v_scale (N, K, ps); otherwise as
+    `paged_gqa_decode`. -> (B, H, d) in q's dtype.
+
+    On the card the kernel runs `num_splits(P * ps)` blocks per (KV head,
+    slot), each over a fixed slice of 64 table rows, into a float32
+    workspace, then merges the slices in a fixed order
+    (`paged_gqa_decode_quant_split_ref` repeats its arithmetic); the split
+    count depends on the table's width only, so reading it needs no host
+    sync and a slot's output does not depend on its batch. It copies rows
+    in 16-byte pieces: d must be a multiple of 16 and the pools 16-byte
+    aligned."""
     if q.device.type != "cuda":
         return paged_gqa_decode_quant_ref(q, k_pages, v_pages, k_scale,
                                           v_scale, page_table, lengths)
@@ -120,10 +132,19 @@ def paged_gqa_decode_quant(q: torch.Tensor, k_pages: torch.Tensor,
             raise ValueError(f"paged_gqa_decode_quant: scales must be "
                              f"contiguous float32 {(N, K, ps)}, got "
                              f"{s.dtype} {tuple(s.shape)}")
+    if d % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"paged_gqa_decode_quant: head_dim {d} must be a "
+                         f"multiple of 16 and the pools 16-byte aligned")
     q = q.contiguous()
     out = torch.empty_like(q)
+    nsplit = num_splits(P * ps)
+    # per (slot, KV head, split): m and l of each query row, then its d
+    # accumulators
+    work = torch.empty(B * K * nsplit * (H // K) * (d + 2),
+                       dtype=torch.float32, device=q.device)
     QUANT_KERNEL(build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
                  build.ptr(k_scale), build.ptr(v_scale), build.ptr(table),
-                 build.ptr(lens), build.ptr(out), B, H, K, d, ps, P, N,
-                 1.0 / math.sqrt(d), Q_DTYPES[q.dtype], build.stream_ptr(q))
+                 build.ptr(lens), build.ptr(out), build.ptr(work), B, H, K,
+                 d, ps, P, N, 1.0 / math.sqrt(d), Q_DTYPES[q.dtype], nsplit,
+                 build.stream_ptr(q))
     return out

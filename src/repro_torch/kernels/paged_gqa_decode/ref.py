@@ -6,13 +6,18 @@ then one float32 masked softmax. Tokens of slot b live at
 pool[page_table[b, t // ps], :, t % ps] for t < lengths[b]; rows past
 `lengths` (the tail of a partial last page and the null-page slots) are
 masked out. Pools may hold any float dtype or fp8 E4M3 codes (uint8); int8
-pools with per-row float32 scales go through the `*_quant_*` versions."""
+pools with per-row float32 scales go through the `*_quant_*` versions.
+`paged_gqa_decode_quant_split_ref` repeats the int8 kernel's split-context
+arithmetic (`csrc/decode_attention.cuh`) and is the yardstick it is held
+to: tests only."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from repro_torch.kernels.gqa_decode.ref import (SPLIT_ROWS,
+                                                gqa_decode_split_ref)
 from repro_torch.kernels.quant import from_fp8, is_fp8_pool
 
 
@@ -127,3 +132,26 @@ def paged_gqa_decode_quant_ref(q: torch.Tensor, k_pages: torch.Tensor,
     p = torch.where(valid, p, torch.zeros_like(p))
     out = torch.einsum("bkgt,bktd->bkgd", p * vs[:, :, None, :], v)
     return out.reshape(B, H, d).to(q.dtype)
+
+
+def paged_gqa_decode_quant_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                     v_pages: torch.Tensor,
+                                     k_scale: torch.Tensor,
+                                     v_scale: torch.Tensor,
+                                     page_table: torch.Tensor,
+                                     lengths: torch.Tensor,
+                                     split_rows: int = SPLIT_ROWS
+                                     ) -> torch.Tensor:
+    """The int8 kernel's split-context arithmetic, arguments as
+    `paged_gqa_decode_quant_ref`: each slot's pages and scales gathered
+    into (B, K, P*ps) rows, then `gqa_decode_split_ref` over them. Split s
+    covers table rows [s * split_rows, (s + 1) * split_rows), and the split
+    count, ceil(P * ps / split_rows), depends on the table's width only. A
+    score is (q / sqrt(d)) . codes times the row's K scale; a split's
+    accumulator sums the V codes weighted by p times the row's V scale; the
+    splits merge in the fixed order 0, 1, ..."""
+    k = gather_pages(k_pages, page_table)
+    v = gather_pages(v_pages, page_table)
+    ks = gather_page_scales(k_scale, page_table)
+    vs = gather_page_scales(v_scale, page_table)
+    return gqa_decode_split_ref(q, k, v, lengths, split_rows, ks, vs)

@@ -383,3 +383,96 @@ def test_split_decode_kernel_on_card():
     assert torch.equal(gqa_decode(q, kc, vc, lens),
                        gqa_decode(q, k.transpose(1, 2), v.transpose(1, 2),
                                   lens))
+
+
+@pytest.mark.parametrize("M,K,N,sms,want", [
+    (499, 1536, 8960, 132, 1),     # 280 output tiles fill 132 SMs
+    (499, 8960, 1536, 132, 5),     # 48 tiles: two rounds of 240 blocks
+    (64, 8960, 64, 132, 70),       # one tile: a slice per k-tile
+    (499, 8960, 1536, 48, 1)])     # as many tiles as SMs
+def test_int8_matmul_split_k_count(M, K, N, sms, want):
+    """The wrapper's split-K count (host arithmetic, no card): whole
+    k-tiles per slice, never more slices than k-tiles."""
+    from repro_torch.kernels.int8_matmul import split_k
+    assert split_k(M, N, K, sms) == want
+    assert 1 <= want <= -(-K // 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [
+    (499, 1536, 8960), (499, 8960, 1536),    # the int8 SwiGLU's two shapes
+    (1, 1536, 8960), (1, 8960, 1536),        # one token
+    (499, 96, 200),                          # N not a multiple of 16 or 128
+    (37, 100, 130),                          # K, N not multiples of 8 or 32
+    (130, 8960, 72), (3, 8961, 24)])         # split K, ragged edges
+def test_int8_matmul_tensor_core_kernel_on_card(M, K, N):
+    """Kernel 8 on the tensor cores: int32 accumulators exactly equal to
+    the plain version's and the scaled output bit for bit, at shapes that
+    reach every edge of the tiling and both the split-K path (K 8960 on a
+    short output) and the direct one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_acc,
+                                                 int8_matmul_acc_ref,
+                                                 int8_matmul_ref, split_k)
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    x[0], w[:, -1] = 127, -127
+    sx = torch.from_numpy(rng.uniform(1e-4, 1, (M, 1)).astype(np.float32))
+    sw = torch.from_numpy(rng.uniform(1e-4, 1, (1, N)).astype(np.float32))
+    x, w, sx, sw = (t.to("cuda") for t in (x, w, sx, sw))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if K == 8960 and N == 1536 or (M, N) == (130, 72):
+        assert split_k(M, N, K, sms) > 1
+    assert torch.equal(int8_matmul_acc(x, w), int8_matmul_acc_ref(x, w))
+    assert torch.equal(int8_matmul(x, w, sx, sw),
+                       int8_matmul_ref(x, w, sx, sw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,K,d", [(12, 2, 128), (25, 25, 64), (4, 4, 16)])
+def test_quant_decode_split_kernel_on_card(H, K, d):
+    """Kernel 5 on the split-context path, through a 1152-row table (18
+    splits, so the merge reads two chunks of 16): against the split mirror
+    element by element (float32 2e-5; bf16 within one bf16 step of the
+    mirror plus MIRROR_ATOL), against the page mirror and the plain version
+    on the same query (float32 2e-5; bf16 1e-2, or one bf16 step of the
+    output where that is larger), with a null-page slot, a one-row slot and
+    lengths on both sides of split edges; each slot's batch-1 call equals
+    its row of the batch-8 call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import (MIRROR_ATOL,
+                                                     bf16_excess, bf16_step)
+    from repro_torch.kernels.paged_gqa_decode import (
+        paged_gqa_decode_quant, paged_gqa_decode_quant_mirror_ref,
+        paged_gqa_decode_quant_ref, paged_gqa_decode_quant_split_ref)
+    from repro_torch.kernels.quant import quantize_page_rows
+    lengths = (1, 1, 64, 65, 1023, 1024, 1025, 1152)
+    q, kf, vf, table, lens = (torch.from_numpy(x).to("cuda") for x in
+                              _paged_case(d, H, K, d=d, ps=16, N=300, P=72,
+                                          lengths=lengths))
+    (kp, ks), (vp, vs) = quantize_page_rows(kf), quantize_page_rows(vf)
+    args = (kp, vp, ks, vs, table, lens)
+    for qd, tol in ((torch.float32, ATOL), (torch.bfloat16, 1e-2)):
+        got = paged_gqa_decode_quant(q.to(qd), *args)
+        split = paged_gqa_decode_quant_split_ref(q.to(qd), *args)
+        assert got.dtype == qd
+        if qd == torch.float32:
+            assert (got - split).abs().max().item() <= ATOL
+        else:
+            assert bf16_excess(got, split) <= MIRROR_ATOL
+        # the plain versions on the query the kernel was given; a bf16
+        # output past 4 rounds by up to half of its 2^-5 step, above 1e-2
+        for ref in (paged_gqa_decode_quant_mirror_ref,
+                    paged_gqa_decode_quant_ref):
+            want = ref(q.to(qd).float(), *args)
+            lim = tol if qd == torch.float32 else max(
+                tol, bf16_step(want).max().item())
+            assert (got.float() - want).abs().max().item() <= lim
+        for b in range(len(lengths)):
+            one = paged_gqa_decode_quant(q[b:b + 1].to(qd), kp, vp, ks, vs,
+                                         table[b:b + 1], lens[b:b + 1])
+            assert torch.equal(one, got[b:b + 1]), b
