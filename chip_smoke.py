@@ -13,13 +13,15 @@ CUDA kernels from `src/repro_torch/csrc/` first, holds every kernel against
 its plain PyTorch version at its path's shapes, and checks that each path
 launched its kernels (launch counts are set to 0 just before a path and
 read just after it). The bf16 tensor-core prefill kernel is also held to
-its mirror and to equal rows for a shorter prompt, and the split dense
-and int8 paged decode kernels to their split mirrors and to equal rows at
-batch 1 and 8; the int8 matmul's int32 accumulators are held exactly and
-its output bit for bit. Prefill, dense decode, paged decode and the int8
-matmul also get device times from a CUDA graph, beside one library call's
-where there is one (SDPA, `torch._int_mm`). Each phase prints one JSON
-line; the last three lines
+its mirror and to equal rows for a shorter prompt, and the split-context
+decode kernels (dense, paged on float, fp8 and int8 pools, and verify) to
+their split mirrors and to equal rows at batch 1 and 8, each verify row to
+the paged decode kernel at its length bit for bit, and the fp8 decode to
+the 256-entry table; the int8 matmul's int32 accumulators are held
+exactly and its output bit for bit. Prefill, dense decode, paged decode,
+verify and the int8 matmul also get device times from a CUDA graph,
+beside one library call's where there is one (SDPA, `torch._int_mm`).
+Each phase prints one JSON line; the last three lines
 are the kernel summary, the card's `nvidia-smi` name and power limit, then
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
@@ -188,8 +190,8 @@ def decode_case(gen, B, H, K, d, lengths, dtype, num_pages):
 
 def kernel_phase(gen) -> dict:
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.paged_gqa_decode import (paged_gqa_decode,
-                                                      paged_gqa_decode_ref)
+    from repro_torch.kernels.paged_gqa_decode import (
+        paged_gqa_decode, paged_gqa_decode_ref, paged_gqa_decode_split_ref)
     cfg = get_arch(ARCH)
     gpt2 = get_arch("gpt2-xl")
     lengths = prompt_lengths()
@@ -207,7 +209,8 @@ def kernel_phase(gen) -> dict:
             dtype, num_pages)
         rows.setdefault("paged_gqa_decode", []).append(decode_row(
             tag, c, paged_gqa_decode, paged_gqa_decode_ref,
-            (q, kp, vp, table, lens), lens, kp.element_size()))
+            (q, kp, vp, table, lens), lens, kp.element_size(),
+            paged_gqa_decode_split_ref))
 
     # the same kernel on the pools of the quantized and mixed paths: fp8
     # E4M3 codes, and float32 pages under a bfloat16 model (kv_dtype="fp32")
@@ -222,7 +225,8 @@ def kernel_phase(gen) -> dict:
         rows["paged_gqa_decode"].append(decode_row(
             f"{ARCH} pools {pools}", cfg, paged_gqa_decode,
             paged_gqa_decode_ref, (q, kp, vp, table, lens), lens,
-            kp.element_size()))
+            kp.element_size(), paged_gqa_decode_split_ref))
+    rows["fp8_decode"] = fp8_code_check()
 
     # the int8 kernel at the int8 path's shapes: pools quantized per row.
     # gpt2-xl runs in float32, as kernel 1's gpt2-xl case: with a bf16
@@ -230,7 +234,7 @@ def kernel_phase(gen) -> dict:
     # values in [4, 8)) exceeds the absolute bf16 tolerance
     from repro_torch.kernels.paged_gqa_decode import (
         paged_gqa_decode_quant, paged_gqa_decode_quant_mirror_ref,
-        paged_gqa_decode_quant_ref)
+        paged_gqa_decode_quant_ref, paged_gqa_decode_quant_split_ref)
     for tag, c, dtype in ((ARCH, cfg, torch.bfloat16),
                           (ARCH, cfg, torch.float32),
                           ("gpt2-xl", gpt2, torch.float32)):
@@ -242,13 +246,12 @@ def kernel_phase(gen) -> dict:
         args = (q, kp, vp, ks, vs, table, lens)
         row = decode_row(f"{tag} int8", c, paged_gqa_decode_quant,
                          paged_gqa_decode_quant_ref, args, lens, 1,
-                         scale_bytes=4)
+                         paged_gqa_decode_quant_split_ref, scale_bytes=4)
         out = paged_gqa_decode_quant(*args)
         mirror = paged_gqa_decode_quant_mirror_ref(*args)
         row["max_abs_err_mirror"] = max_err(out, mirror)
         check(row["max_abs_err_mirror"] <= TOL[dtype],
               f"int8 decode {tag} vs mirror: {row['max_abs_err_mirror']}")
-        row.update(quant_split_checks(tag, out, args))
         rows.setdefault("paged_gqa_decode_quant", []).append(row)
 
     # prefill attention at the serve's longest and a ragged prompt
@@ -364,11 +367,12 @@ def flash_row(gen, tag, c, S, S_min, dtype) -> dict:
 
 def verify_row(tag, c, args) -> dict:
     """The verify kernel against its plain version (on a float32 copy of q)
-    at one case, and each window row against the decode kernel at base +
-    v + 1, which computes the same operations (0 expected)."""
+    and its split mirror at one case, each window row against the decode
+    kernel at base + v + 1, which computes the same operations (0.0), and
+    each slot's batch-1 call against the batch-8 call (0.0)."""
     from repro_torch.kernels.paged_gqa_decode import paged_gqa_decode
-    from repro_torch.kernels.paged_gqa_verify import (paged_gqa_verify,
-                                                      paged_gqa_verify_ref)
+    from repro_torch.kernels.paged_gqa_verify import (
+        paged_gqa_verify, paged_gqa_verify_ref, paged_gqa_verify_split_ref)
     q, kp, vp, table, base = args
     V = q.shape[1]
     out = paged_gqa_verify(*args)
@@ -379,8 +383,10 @@ def verify_row(tag, c, args) -> dict:
     err = max_err(out, want)
     check(bool(torch.isfinite(out.float()).all()), f"verify {tag} finite")
     check(err <= TOL[q.dtype], f"paged verify {tag} {q.dtype}: {err}")
-    check(rows_vs_decode <= TOL[q.dtype],
+    check(rows_vs_decode == 0.0,
           f"paged verify {tag}: window rows vs decode {rows_vs_decode}")
+    extra = split_checks(f"verify {tag}", paged_gqa_verify,
+                         paged_gqa_verify_split_ref, out, args)
     # each slot reads its context plus the window once; window row v scores
     # base + v + 1 rows
     K, d, H = c.num_kv_heads, c.head_dim, c.num_heads
@@ -393,8 +399,9 @@ def verify_row(tag, c, args) -> dict:
     return dict(shape=f"B{SLOTS} V{V} H{H} K{K} d{d} ps{PAGE_SIZE} "
                 f"ctx{read_rows}", arch=tag, dtype=str(q.dtype),
                 max_abs_err=err, tolerance=TOL[q.dtype],
-                max_abs_err_rows_vs_decode=rows_vs_decode,
+                max_abs_err_rows_vs_decode=rows_vs_decode, **extra,
                 ms=cuda_ms(lambda: paged_gqa_verify(*args)),
+                device_ms=graph_ms(lambda: paged_gqa_verify(*args)),
                 plain_ms=cuda_ms(lambda: paged_gqa_verify_ref(*args), reps=5),
                 bound_ms=b_ms, bound_by=b_by,
                 # a page gather plus SDPA is not one call
@@ -457,19 +464,18 @@ def dense_row(gen, tag, c, lengths, dtype) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def quant_split_checks(tag, out, args) -> dict:
-    """Kernel 5's split-context path against its split mirror, element by
+def split_checks(tag, fn, mirror, out, args) -> dict:
+    """A paged split-context kernel `fn` (1, 5 or 6; `args` end with the
+    page table and the lengths) against its split mirror, element by
     element (float32 within TOL; bf16 within one bf16 step of the mirror's
     element plus MIRROR_ATOL), and each slot's batch-1 call against its row
     of the batch-8 call, at the same table width (0.0)."""
     from repro_torch.kernels.flash_attention import MIRROR_ATOL, bf16_excess
     from repro_torch.kernels.gqa_decode import SPLIT_ROWS, num_splits
-    from repro_torch.kernels.paged_gqa_decode import (
-        paged_gqa_decode_quant, paged_gqa_decode_quant_split_ref)
-    q, table = args[0], args[5]
-    split = paged_gqa_decode_quant_split_ref(*args)
-    batch1 = max(max_err(out[b:b + 1], paged_gqa_decode_quant(
-        q[b:b + 1], *args[1:5], table[b:b + 1], args[6][b:b + 1]))
+    q, table, lens = args[0], args[-2], args[-1]
+    split = mirror(*args)
+    batch1 = max(max_err(out[b:b + 1], fn(
+        q[b:b + 1], *args[1:-2], table[b:b + 1], lens[b:b + 1]))
         for b in range(q.shape[0]))
     torch.cuda.synchronize()
     got = dict(variant=f"split: split_rows {SPLIT_ROWS}, nsplit "
@@ -480,22 +486,44 @@ def quant_split_checks(tag, out, args) -> dict:
         got.update(split_mirror_excess=bf16_excess(out, split),
                    mirror_tolerance=MIRROR_ATOL)
         check(got["split_mirror_excess"] <= MIRROR_ATOL,
-              f"int8 decode {tag} vs its split mirror: an element strays "
+              f"{tag} vs its split mirror: an element strays "
               f"{got['split_mirror_excess']} beyond one bf16 step")
     else:
         check(got["max_abs_err_split_mirror"] <= TOL[q.dtype],
-              f"int8 decode {tag} vs its split mirror: "
+              f"{tag} vs its split mirror: "
               f"{got['max_abs_err_split_mirror']}")
-    check(batch1 == 0.0, f"int8 decode {tag}: batch-1 rows differ from the "
+    check(batch1 == 0.0, f"{tag}: batch-1 rows differ from the "
           f"batch-{q.shape[0]} call by {batch1}")
     return got
 
 
-def decode_row(tag, c, fn, ref, args, lens, pool_isz, scale_bytes=0):
+def fp8_code_check() -> dict:
+    """The kernels' E4M3 decode against the plain version's 256-entry table
+    (NaN codes included): one slot of length 1, its V row holding every
+    code, comes out of the decode kernel as that row (p = 1)."""
+    from repro_torch.kernels.paged_gqa_decode import paged_gqa_decode
+    from repro_torch.kernels.quant import fp8_table
+    kp = torch.zeros((2, 1, PAGE_SIZE, 256), dtype=torch.uint8, device="cuda")
+    vp = kp.clone()
+    vp[1, 0, 0] = torch.arange(256, dtype=torch.uint8, device="cuda")
+    one = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+    got = paged_gqa_decode(torch.zeros((1, 1, 256), device="cuda"), kp, vp,
+                           one, one[0])[0, 0]
+    want = fp8_table().cuda()
+    nan_equal = bool(torch.equal(got.isnan(), want.isnan()))
+    mismatched = int((got.nan_to_num() != want.nan_to_num()).sum())
+    check(nan_equal and mismatched == 0, f"fp8 decode vs the 256-entry "
+          f"table: {mismatched} codes differ, NaN codes equal: {nan_equal}")
+    return dict(codes=256, nan_codes=int(want.isnan().sum()),
+                mismatched_codes=mismatched)
+
+
+def decode_row(tag, c, fn, ref, args, lens, pool_isz, mirror,
+               scale_bytes=0):
     """One paged decode kernel against its plain version (on float32 copies
-    of q) at one case; the tolerance is q's dtype's. Times: CUDA events
-    around one call (`ms`) and device time from a CUDA graph
-    (`device_ms`)."""
+    of q) at one case, the tolerance q's dtype's, and against its split
+    mirror (`split_checks`). Times: CUDA events around one call (`ms`) and
+    device time from a CUDA graph (`device_ms`)."""
     q = args[0]
     out = fn(*args)
     want = ref(q.float(), *args[1:])
@@ -503,6 +531,7 @@ def decode_row(tag, c, fn, ref, args, lens, pool_isz, scale_bytes=0):
     err = max_err(out, want)
     check(bool(torch.isfinite(out.float()).all()), f"decode {tag} finite")
     check(err <= TOL[q.dtype], f"paged decode {tag} {q.dtype}: {err}")
+    extra = split_checks(f"paged decode {tag}", fn, mirror, out, args)
     ctx = int(lens.sum())
     K, d = c.num_kv_heads, c.head_dim
     nbytes = (2 * q.numel() * q.element_size() + args[-2].numel() * 4
@@ -510,7 +539,7 @@ def decode_row(tag, c, fn, ref, args, lens, pool_isz, scale_bytes=0):
     b_ms, b_by = bound(nbytes, 4.0 * ctx * c.num_heads * d, q.dtype)
     return dict(shape=f"B{SLOTS} H{c.num_heads} K{K} d{d} ps{PAGE_SIZE} "
                 f"ctx{ctx}", arch=tag, dtype=str(q.dtype),
-                max_abs_err=err, tolerance=TOL[q.dtype],
+                max_abs_err=err, tolerance=TOL[q.dtype], **extra,
                 ms=cuda_ms(lambda: fn(*args)),
                 device_ms=graph_ms(lambda: fn(*args)),
                 plain_ms=cuda_ms(lambda: ref(*args), reps=5),

@@ -1,5 +1,6 @@
-"""Time the PyTorch port's int8 kernels of two source trees in one run, on
-one card, in turns (for example parent, change, change, parent).
+"""Time the PyTorch port's paged decode, verify and int8 kernels of two
+source trees in one run, on one card, in turns (for example parent,
+change, change, parent).
 
     python scripts/torch_kernel_ab.py TREE [TREE ...] [--out FILE]
 
@@ -7,10 +8,15 @@ Each TREE is the root of a checkout of this repository (a `git archive` of
 another commit unpacked anywhere, or `.`). For each, in the order given, a
 subprocess puts TREE/src first on the path, builds that tree's kernels
 (into TREE/build/kernels) and times, at the shapes `chip_smoke.py` gives
-them:
+them (8 slots of dsr1d-qwen-1.5b mid-decode, bf16 query):
 
-* `paged_gqa_decode_quant` (Pallas kernel 5): bf16 query, int8 pools with
-  per-row scales, 8 slots of dsr1d-qwen-1.5b mid-decode;
+* `paged_gqa_decode` (Pallas kernel 1) on bf16 and on fp8 pools;
+* `paged_gqa_decode_quant` (Pallas kernel 5) on int8 pools with per-row
+  scales;
+* `paged_gqa_verify` (Pallas kernel 6), k 3 (4 window rows), on bf16 and
+  on fp8 pools;
+* `gqa_decode` (Pallas kernel 7) on a bf16 dense cache of 640 rows, the
+  dense serve's, through the (B, K, T, d) view the decode step passes;
 * `int8_matmul` (Pallas kernel 8) at the int8 SwiGLU's two shapes, with
   `torch._int_mm` plus the same epilogue as the yardstick.
 
@@ -39,8 +45,11 @@ def measure(tree: Path) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels.int8_matmul import (int8_matmul, quantize_cols,
                                                  quantize_rows)
-    from repro_torch.kernels.paged_gqa_decode import paged_gqa_decode_quant
-    from repro_torch.kernels.quant import quantize_page_rows
+    from repro_torch.kernels.gqa_decode import gqa_decode
+    from repro_torch.kernels.paged_gqa_decode import (
+        paged_gqa_decode, paged_gqa_decode_quant)
+    from repro_torch.kernels.paged_gqa_verify import paged_gqa_verify
+    from repro_torch.kernels.quant import quantize_page_rows, to_fp8_codes
     # the port is imported from `tree` first, so chip_smoke's own path
     # entry, added when it is imported, leaves it in place
     sys.path.insert(1, str(REPO))
@@ -49,20 +58,48 @@ def measure(tree: Path) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     cfg = get_arch(cs.ARCH)
+    H, K, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lengths = cs.prompt_lengths()
     dec_lens = np.r_[1, lengths[1:cs.SLOTS] + cs.NEW_TOKENS // 2]
     per_slot = -(-(cs.PROMPT_MAX + cs.NEW_TOKENS) // cs.PAGE_SIZE)
-    q, kf, vf, table, lens = cs.decode_case(
-        gen, cs.SLOTS, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-        dec_lens, torch.float32, cs.SLOTS * per_slot + 1)
-    q = q.to(torch.bfloat16)
-    (kp, ks), (vp, vs) = quantize_page_rows(kf), quantize_page_rows(vf)
-    args = (q, kp, vp, ks, vs, table, lens)
-    rows = [dict(kernel="paged_gqa_decode_quant",
-                 shape=f"B{cs.SLOTS} H{cfg.num_heads} K{cfg.num_kv_heads} "
-                 f"d{cfg.head_dim} ps{cs.PAGE_SIZE} ctx{int(lens.sum())}",
-                 device_ms=cs.graph_ms(lambda: paged_gqa_decode_quant(*args)),
-                 ms=cs.cuda_ms(lambda: paged_gqa_decode_quant(*args)))]
+    V = cs.SPEC_K + 1
+    bf16 = torch.bfloat16
+    paged = f"H{H} K{K} d{d} ps{cs.PAGE_SIZE}"
+    cases = []    # (kernel, pools, shape, function, arguments)
+    for kernel, fn, window in (("paged_gqa_decode", paged_gqa_decode, 0),
+                               ("paged_gqa_verify", paged_gqa_verify, V)):
+        q, kf, vf, table, lens = cs.decode_case(
+            gen, cs.SLOTS, H, K, d, dec_lens + window, torch.float32,
+            cs.SLOTS * per_slot + 1)
+        shape = f"B{cs.SLOTS} {paged} ctx{int(lens.sum())}"
+        if window:    # V window rows after base = lens - V
+            q = torch.randn((cs.SLOTS, V, H, d), generator=gen,
+                            device="cuda")
+            lens = (lens - V).clamp(min=0)
+            ctx = int(lens.sum()) + cs.SLOTS * V    # context plus window
+            shape = f"B{cs.SLOTS} V{V} {paged} ctx{ctx}"
+        for pools, kv in (("bf16", (kf.to(bf16), vf.to(bf16))),
+                          ("fp8", (to_fp8_codes(kf), to_fp8_codes(vf)))):
+            cases.append((kernel, pools, shape, fn,
+                          (q.to(bf16), *kv, table, lens)))
+        if not window:
+            (kp, ks), (vp, vs) = quantize_page_rows(kf), quantize_page_rows(vf)
+            cases.append(("paged_gqa_decode_quant", "int8", shape,
+                          paged_gqa_decode_quant,
+                          (q.to(bf16), kp, vp, ks, vs, table, lens)))
+    T = cs.DENSE_MAX_LEN
+    kc, vc = (torch.randn((cs.SLOTS, T, K, d), generator=gen, device="cuda")
+              .to(bf16).transpose(1, 2) for _ in range(2))
+    lens = torch.as_tensor(np.r_[lengths[:cs.SLOTS - 1] + cs.NEW_TOKENS // 2,
+                                 T], dtype=torch.int32, device="cuda")
+    q = torch.randn((cs.SLOTS, H, d), generator=gen, device="cuda").to(bf16)
+    cases.append(("gqa_decode", "dense bf16",
+                  f"B{cs.SLOTS} T{T} H{H} K{K} d{d} ctx{int(lens.sum())}",
+                  gqa_decode, (q, kc, vc, lens)))
+    rows = [dict(kernel=kernel, pools=pools, shape=shape,
+                 device_ms=cs.graph_ms(lambda: fn(*args)),
+                 ms=cs.cuda_ms(lambda: fn(*args)))
+            for kernel, pools, shape, fn, args in cases]
     M = int(lengths.max())
     for K, N in cs.FFN_SHAPES:
         x = torch.randn((M, K), generator=gen, device="cuda").to(

@@ -1,73 +1,60 @@
-// The decode-attention kernel template shared by the port's paged decode
-// (Pallas kernels 1 and 5), speculative verification (kernel 6) and dense
-// decode (kernel 7) entry points.
+// The decode-attention kernels shared by the port's paged decode (Pallas
+// kernels 1 and 5), speculative verification (kernel 6) and dense decode
+// (kernel 7) entry points.
 //
 // Each query row scores K/V rows of one KV head of one sequence, row t of
 // which lives where a row-addressing policy says: a page-table lookup into
 // a pool (N, K, ps, d) (PagedRows) or base + strides into a dense cache
-// (StridedRows). A block holds R = V * G query rows: the G query heads of
-// the KV head (head h reads KV head h / G) for each of V window rows, laid
-// out window-major (row v * G + g), as the reference's verify kernel lays
-// them out. Window row v attends the first lengths[b] + v + len_add rows
+// (StridedRows). A load policy turns 16 bytes of the cache into float32
+// (float, fp8 E4M3 and int8 caches; int8 rows also carry a float32 scale).
+// A block holds R = V * G query rows: the G query heads of the KV head
+// (head h reads KV head h / G) for each of V window rows, laid out
+// window-major (row v * G + g), as the reference's verify kernel lays them
+// out. Window row v attends the first lengths[b] + v + len_add rows
 // (len_add 0 for decode, where V = 1; 1 for verify, whose lengths are the
 // context before the window), clamped to the cache.
 //
 // Bound on the H100: every call reads each resident K and V row once and
 // does about 4 * R * d flops per row, a few flops per byte, so it is bound
-// by bytes. Two paths share the load and row-addressing policies:
-//
-// The unsplit path (decode_attention_kernel; paged decode of float and fp8
-// pools, verification):
-//   * one block per (KV head, sequence), walking the context in tiles of 32
-//     rows up to the widest window row's horizon;
-//   * the R query rows share each row load: a warp loads one K row into
-//     registers (coalesced) and scores it against every query row held in
-//     shared memory; a query row past its own horizon gets -1e30, so a tile
-//     beyond it leaves the row's m, l and accumulators exactly unchanged
-//     (corr = exp(0) = 1, p = 0). Row v therefore computes what V = 1 would
-//     compute at length lengths[b] + v + len_add, operation for operation;
-//   * float32 online softmax across tiles (m, l in shared memory, the
-//     output accumulators in registers); p = 0 where the score is <= -1e30
-//     / 2 and the denominator is clamped at 1e-30, as in the reference;
-//   * V rows are read coalesced by the threads that own consecutive output
-//     dimensions.
-//   Only K x B blocks run (16 for dsr1d at 8 sequences, 2 at one).
-//
-// The split-context path (decode_split_kernel + decode_merge_kernel; V = 1:
-// dense decode of float caches, and paged decode of int8 pools with per-row
-// scales):
+// by bytes. The context is split across blocks so that enough of them run
+// (decode_split_kernel, then decode_merge_kernel):
 //   * a grid of (KV head, sequence, split): split s walks the fixed rows
 //     [s * kSplitRows, (s + 1) * kSplitRows), and the split count,
 //     ceil(cap / kSplitRows) for the cache's (or page table's) row capacity
 //     cap, depends on the cache's shape only, never on the lengths (which
 //     live on the device), so a sequence's arithmetic does not depend on
 //     the batch beside it;
-//   * the split's valid K and V rows (and for int8 their scales) are copied
-//     to shared memory with cp.async copies issued together with the query
-//     loads, in rows padded by 16 bytes; rows past the sequence are
-//     zero-filled, not read. A row's address does not wait on the length:
-//     rows past the capacity are clamped to its last row, so a slot whose
-//     table points at the null page reads only in-bounds rows;
+//   * the split's K and V rows up to the widest window row's horizon (and
+//     for int8 their scales) are copied to shared memory with cp.async
+//     copies issued together with the query loads, in rows padded by 16
+//     bytes; rows past that horizon are zero-filled, not read. A row's
+//     address does not wait on the length: rows past the capacity are
+//     clamped to its last row, so a slot whose table points at the null
+//     page reads only in-bounds rows;
 //   * each thread scores whole K rows against its query rows (no sums
-//     across lanes), one warp per query row takes the split's softmax, and
-//     P V runs over slices of the rows so that every thread works. An int8
-//     row's scales enter once per row: the score is the dot product with
-//     the codes times the K scale, and P V weighs the codes of V row r by
-//     p_r times its V scale (the denominator sums p_r alone);
-//   * each split writes a float32 partial (m, l, acc) of its rows to a
-//     workspace the caller allocates; a split wholly past lengths[b]
-//     writes m = -1e30, l = 0, acc = 0;
+//     across lanes); a row past its window row's horizon is masked to
+//     -1e30. One warp per query row takes the split's softmax
+//     (p = 0 where the score is <= -1e30 / 2). P V runs window row by
+//     window row over slices of the rows so that every thread works; the
+//     slicing depends on G and d alone and each window row's sums stop at
+//     its own horizon, so window row v computes, operation for operation,
+//     what V = 1 computes at lengths[b] + v + len_add. An int8 row's scales
+//     enter once per row: the score is the dot product with the codes times
+//     the K scale, and P V weighs the codes of V row r by p_r times its V
+//     scale (the denominator sums p_r alone);
+//   * each split writes a float32 partial (m, l, acc) of each query row to
+//     a workspace the caller allocates; a row whose horizon ends before the
+//     split writes m = -1e30, l = 0, acc = 0 (the whole block returns early
+//     when that holds for its widest row);
 //   * a second launch, scheduled while the first runs (programmatic
 //     dependent launch), merges each (KV head, sequence)'s splits in the
 //     fixed order 0, 1, ..., one thread per output element: weights
 //     exp(m_s - max m), 0 for an empty split, so it drops out exactly; the
 //     denominator clamped at 1e-30.
-// Paged decode of float and fp8 pools (kernel 1) and verification (kernel
-// 6) stay on the unsplit path, where verify row v computes exactly what
-// kernel 1 computes at lengths[b] + v + 1; they move to the split path
-// together.
 
 #pragma once
+
+#include <cuda_fp8.h>
 
 #include "common.cuh"
 
@@ -75,26 +62,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;     // context rows per tile (one per lane in softmax)
-constexpr int kMaxAcc = 16;   // outputs per thread: R * d <= 4096
-constexpr int kMaxRows = 64;  // query rows per block: bounds shared memory
+constexpr int kMaxAcc = 16;     // query elements per thread: R * d <= 4096
+constexpr int kMaxRows = 64;    // query rows per block: bounds shared memory
+constexpr int kSplitRows = 64;  // context rows per split block
+constexpr int kMergeRegs = 16;  // splits the merge loads per chunk
 constexpr float kNegInf = -1.0e30f;
-
-// E4M3 code -> float32, exact: sign, 4 exponent bits (bias 7), 3 mantissa
-// bits; exponent 0 is subnormal (m * 2^-9), 0x7F / 0xFF are NaN. The plain
-// version's 256-entry table (repro_torch/kernels/quant.py fp8_table) is
-// built by the same rule.
-__device__ __forceinline__ float e4m3_to_f32(unsigned int c) {
-  const unsigned int e = (c >> 3) & 0xFu, m = c & 0x7u;
-  float mag;
-  if (e == 0)
-    mag = static_cast<float>(m) * 0.001953125f;
-  else if (e == 15 && m == 7)
-    mag = __int_as_float(0x7fc00000);
-  else
-    mag = __int_as_float(static_cast<int>(((e + 120u) << 23) | (m << 20)));
-  return (c & 0x80u) ? -mag : mag;
-}
 
 // 16 bytes of a float cache as float32, exactly (bfloat16 is the top
 // half of a float32)
@@ -134,33 +106,44 @@ struct Unpack16<__half> {
   }
 };
 
-// Load policies: the cache's element type, its float32 value, and whether
-// each row carries a float32 scale (int8, split path only); float and int8
-// caches also unpack 16 bytes (kVec elements) at once for the split path.
+// Load policies: the cache's element type, whether each row carries a
+// float32 scale (int8), and the unpacking of 16 bytes (kVec elements, the
+// lowest address first) into float32, exactly.
 template <typename E>
 struct LoadFloat {
   using Elem = E;
   static constexpr bool kScaled = false;
   static constexpr int kVec = 16 / sizeof(E);
-  static __device__ __forceinline__ float get(const E* p, long long i) {
-    return to_f32(p[i]);
-  }
   static __device__ __forceinline__ void vec(const uint4& u, float* f) {
     Unpack16<E>::run(u, f);
   }
 };
+// fp8 E4M3 codes, two at a time through the hardware's conversion to half:
+// exact, since every E4M3 value (subnormals included) is a half, and codes
+// 0x7F / 0xFF give NaN, as the plain version's 256-entry table
+// (repro_torch/kernels/quant.py fp8_table) decodes them
 struct LoadE4M3 {
   using Elem = unsigned char;
   static constexpr bool kScaled = false;
-  static __device__ __forceinline__ float get(const Elem* p, long long i) {
-    return e4m3_to_f32(p[i]);
+  static constexpr int kVec = 16;
+  static __device__ __forceinline__ void vec(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 x = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+            static_cast<__nv_fp8x2_storage_t>(w[i] >> (16 * j)),
+            __NV_E4M3)));
+        f[4 * i + 2 * j] = x.x;
+        f[4 * i + 2 * j + 1] = x.y;
+      }
   }
 };
 struct LoadInt8 {
   using Elem = signed char;
   static constexpr bool kScaled = true;
   static constexpr int kVec = 16;
-  // 16 int8 codes as float32 (exact), the lowest address first
   static __device__ __forceinline__ void vec(const uint4& u, float* f) {
     const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
@@ -173,13 +156,13 @@ struct LoadInt8 {
 };
 
 // Row-addressing policies. row() names row t of (sequence b, KV head kh):
-// its index in the scales' row space (scaled loads, split path), from
-// which elem() gives the element offset of its first element; cap() is the
-// number of rows a sequence can address.
+// its index in the scales' row space (scaled loads), from which elem()
+// gives the element offset of its first element; cap() is the number of
+// rows a sequence can address.
 struct PagedRows {  // pools (N, K, ps, d) through a (B, P) page table
   const int* table;
   int ps, P, N, K;
-  __device__ __forceinline__ int cap() const { return P * ps; }
+  __host__ __device__ __forceinline__ int cap() const { return P * ps; }
   // out-of-range page ids read page 0, the null page
   __device__ __forceinline__ long long row(int b, int kh, int t) const {
     int page = table[static_cast<size_t>(b) * P + t / ps];
@@ -193,7 +176,7 @@ struct PagedRows {  // pools (N, K, ps, d) through a (B, P) page table
 struct StridedRows {  // a dense (B, K, T, d) view: element strides per axis
   long long sb, sk, st;
   int T;
-  __device__ __forceinline__ int cap() const { return T; }
+  __host__ __device__ __forceinline__ int cap() const { return T; }
   __device__ __forceinline__ long long row(int b, int kh, int t) const {
     return b * sb + kh * sk + t * st;
   }
@@ -202,175 +185,12 @@ struct StridedRows {  // a dense (B, K, T, d) view: element strides per axis
   }
 };
 
-template <typename Load, typename Rows, int DC>  // DC: dims per lane
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const void* __restrict__ q,
-                        const typename Load::Elem* __restrict__ kc,
-                        const typename Load::Elem* __restrict__ vc,
-                        const Rows rows,
-                        const int* __restrict__ lengths,
-                        void* __restrict__ out, int H, int K, int d, int V,
-                        int len_add, float scale, bool q_bf16) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int G = H / K, R = V * G;
-  long long* row_off = reinterpret_cast<long long*>(smem_raw);  // kTile
-  float* q_sh = reinterpret_cast<float*>(row_off + kTile);      // R * d
-  float* w_sh = q_sh + R * d;      // R * kTile: scores, then weights
-  float* m_sh = w_sh + R * kTile;  // R
-  float* l_sh = m_sh + R;          // R
-  float* c_sh = l_sh + R;          // R: this tile's rescale factor
-
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // row v * G + g may attend rows t < base + v; the block walks to the
-  // widest window row's horizon
-  const int base = lengths[b] + len_add;
-  const int len = min(base + V - 1, rows.cap());
-
-  // query row i = v * G + g is head kh * G + g of window row v
-  for (int i = tid; i < R * d; i += kThreads) {
-    const int r = i / d, c = i - r * d, v = r / G, g = r - v * G;
-    const size_t qi =
-        ((static_cast<size_t>(b) * V + v) * H + kh * G + g) * d + c;
-    q_sh[i] = (q_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(q)[qi])
-                      : static_cast<const float*>(q)[qi]) *
-              scale;
-  }
-  for (int r = tid; r < R; r += kThreads) {
-    m_sh[r] = kNegInf;
-    l_sh[r] = 0.f;
-  }
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) acc[j] = 0.f;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += kTile) {
-    const int n = min(kTile, len - t0);
-    // scores: warp w scores context rows w, w + 8, ... of the tile against
-    // every query row; query rows below `first` are past their horizon
-    for (int r = warp; r < kTile; r += kWarps) {
-      if (r < n) {
-        const int t = t0 + r;
-        const int first = max(0, (t - base + 1) * G);
-        const long long off = rows.elem(rows.row(b, kh, t), d);
-        if (lane == 0) row_off[r] = off;
-        float kf[DC];
-#pragma unroll
-        for (int i = 0; i < DC; ++i) {
-          const int c = lane + 32 * i;
-          kf[i] = c < d ? Load::get(kc, off + c) : 0.f;
-        }
-        if (lane == 0)
-          for (int g = 0; g < min(first, R); ++g) w_sh[g * kTile + r] = kNegInf;
-        for (int g = first; g < R; ++g) {
-          float part = 0.f;
-#pragma unroll
-          for (int i = 0; i < DC; ++i) {
-            const int c = lane + 32 * i;
-            if (c < d) part += q_sh[g * d + c] * kf[i];
-          }
-          part = warp_sum(part);
-          if (lane == 0) w_sh[g * kTile + r] = part;
-        }
-      } else if (lane == 0) {
-        for (int g = 0; g < R; ++g) w_sh[g * kTile + r] = kNegInf;
-      }
-    }
-    __syncthreads();
-    // online softmax: warp w handles query rows w, w + 8, ...; lane = row
-    for (int g = warp; g < R; g += kWarps) {
-      const float sv = w_sh[g * kTile + lane];
-      const float m_prev = m_sh[g];
-      const float m_new = fmaxf(m_prev, warp_max(sv));
-      const float p = sv <= kNegInf / 2 ? 0.f : expf(sv - m_new);
-      const float corr = expf(m_prev - m_new);
-      const float psum = warp_sum(p);
-      w_sh[g * kTile + lane] = p;
-      if (lane == 0) {
-        m_sh[g] = m_new;
-        l_sh[g] = l_sh[g] * corr + psum;
-        c_sh[g] = corr;
-      }
-    }
-    __syncthreads();
-    // accumulate: thread owns outputs (g, c) = divmod(tid + j * 256, d)
-#pragma unroll
-    for (int j = 0; j < kMaxAcc; ++j) {
-      const int idx = tid + j * kThreads;
-      if (idx < R * d) {
-        const int g = idx / d, c = idx - g * d;
-        float a = acc[j] * c_sh[g];
-        const float* w = w_sh + g * kTile;
-        for (int r = 0; r < n; ++r) a += w[r] * Load::get(vc, row_off[r] + c);
-        acc[j] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) {
-    const int idx = tid + j * kThreads;
-    if (idx < R * d) {
-      const int r = idx / d, c = idx - r * d, v = r / G, g = r - v * G;
-      const size_t oi =
-          ((static_cast<size_t>(b) * V + v) * H + kh * G + g) * d + c;
-      const float o = acc[j] / fmaxf(l_sh[r], 1e-30f);
-      if (q_bf16)
-        static_cast<__nv_bfloat16*>(out)[oi] = __float2bfloat16(o);
-      else
-        static_cast<float*>(out)[oi] = o;
-    }
-  }
-}
-
-// Launch one decode-attention call: q, out (B, V, H, d) contiguous in q's
-// type (float32, q_dtype 0, or bfloat16, 1). Refuses (cudaErrorInvalidValue)
-// a query type, head dim (> 256) or row count (V * H / K > 64, or
-// V * H / K * d > 4096) the kernel does not take.
-template <typename Load, typename Rows>
-cudaError_t launch_decode_attention(const void* q, const void* kc,
-                                    const void* vc, const Rows& rows,
-                                    const int* lengths, void* out, int B,
-                                    int H, int K, int d, int V, int len_add,
-                                    float scale, int q_dtype,
-                                    cudaStream_t stream) {
-  if (q_dtype != kF32 && q_dtype != kBF16) return cudaErrorInvalidValue;
-  if (K <= 0 || H % K || V < 1) return cudaErrorInvalidValue;
-  const int R = V * (H / K);
-  if (R > kMaxRows || R * d > kThreads * kMaxAcc || d > 256)
-    return cudaErrorInvalidValue;
-  const dim3 grid(K, B);
-  static_assert(!Load::kScaled, "scaled rows take the split path");
-  const size_t smem = kTile * sizeof(long long) +
-                      (R * d + R * kTile + 3 * R) * sizeof(float);
-  using E = typename Load::Elem;
-  const E* kp = static_cast<const E*>(kc);
-  const E* vp = static_cast<const E*>(vc);
-  const bool q_bf16 = q_dtype == kBF16;
-  // head dims up to 64, 128 and 256: lanes past d are masked
-#define TRAPTI_ATTEND(DC)                                                   \
-  decode_attention_kernel<Load, Rows, DC><<<grid, kThreads, smem, stream>>>( \
-      q, kp, vp, rows, lengths, out, H, K, d, V, len_add, scale,            \
-      q_bf16)
-  if (d <= 64) TRAPTI_ATTEND(2);
-  else if (d <= 128) TRAPTI_ATTEND(4);
-  else TRAPTI_ATTEND(8);
-#undef TRAPTI_ATTEND
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------- split-context path
-constexpr int kSplitRows = 64;  // context rows per split block
-constexpr int kMergeRegs = 16;  // splits the merge loads per chunk
-
-// Partials of one (sequence, KV head, split), G query rows: m[G], l[G],
-// then acc[G][d]; splits of a (sequence, KV head) are adjacent.
+// Partials of one (sequence, KV head, split), R query rows: m[R], l[R],
+// then acc[R][d]; splits of a (sequence, KV head) are adjacent.
 __device__ __forceinline__ size_t partial_offset(int b, int kh, int s,
-                                                 int K, int nsplit, int G,
+                                                 int K, int nsplit, int R,
                                                  int d) {
-  return ((static_cast<size_t>(b) * K + kh) * nsplit + s) * G * (d + 2);
+  return ((static_cast<size_t>(b) * K + kh) * nsplit + s) * R * (d + 2);
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -394,24 +214,33 @@ __device__ __forceinline__ void copy4_async(float* dst, const float* src,
 
 // Shared memory of the split kernel: the K and V rows (padded by 16 bytes
 // so that threads reading consecutive rows hit distinct banks), the scaled
-// query rows, the scores (then weights), P V's partial sums, and for
-// scaled loads the rows' K and V scales.
+// query rows, the scores (then weights), one window row's P V partial sums,
+// and for scaled loads the rows' K and V scales.
 template <typename E>
 __host__ __device__ constexpr int split_row_ld(int d) {
   return d + 16 / static_cast<int>(sizeof(E));
 }
+// P V of one window row: G * (d / kVec) items of kVec sums, in
+// max(1, kThreads / items) row slices each
 template <typename Load>
-__host__ __device__ inline int split_smem_bytes(int G, int d) {
+__host__ __device__ inline int split_red_floats(int G, int d) {
+  return kThreads * Load::kVec > G * d ? kThreads * Load::kVec : G * d;
+}
+template <typename Load>
+__host__ __device__ inline int split_smem_bytes(int G, int R, int d) {
   using E = typename Load::Elem;
-  const int red = kThreads * Load::kVec > G * d ? kThreads * Load::kVec
-                                                : G * d;
   const int scales = Load::kScaled ? 2 * kSplitRows : 0;
   return 2 * kSplitRows * split_row_ld<E>(d) * static_cast<int>(sizeof(E)) +
-         (G * d + G * kSplitRows + red + scales) *
+         (R * d + R * kSplitRows + split_red_floats<Load>(G, d) + scales) *
              static_cast<int>(sizeof(float));
 }
 
-template <typename Load, typename Rows>
+// kWindow: the block holds V window rows (verification, and paged decode of
+// float and fp8 pools, which must equal it row for row and so runs the same
+// instances); without it V = 1 and len_add = 0 are constants (dense decode,
+// int8 paged decode), which keeps their index arithmetic, and their time,
+// that of a kernel written for one window row.
+template <typename Load, typename Rows, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const void* __restrict__ q,
                     const typename Load::Elem* __restrict__ kc,
@@ -420,17 +249,18 @@ decode_split_kernel(const void* __restrict__ q,
                     const float* __restrict__ vscale, const Rows rows,
                     const int* __restrict__ lengths,
                     float* __restrict__ part, int H, int K, int d,
-                    float scale, bool q_bf16) {
+                    int window, int window_add, float scale, bool q_bf16) {
   using E = typename Load::Elem;
+  const int V = kWindow ? window : 1, len_add = kWindow ? window_add : 0;
   constexpr int kVec = Load::kVec;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int G = H / K, nch = d / kVec, ld = split_row_ld<E>(d);
+  const int G = H / K, R = V * G, nch = d / kVec, ld = split_row_ld<E>(d);
   E* k_sh = reinterpret_cast<E*>(smem_raw);                  // 64 x ld
   E* v_sh = k_sh + kSplitRows * ld;                          // 64 x ld
-  float* q_sh = reinterpret_cast<float*>(v_sh + kSplitRows * ld);  // G x d
-  float* w_sh = q_sh + G * d;  // G x 64: scores, then weights
-  float* red_sh = w_sh + G * kSplitRows;  // max(256 kVec, G d)
-  float* ks_sh = red_sh + (kThreads * kVec > G * d ? kThreads * kVec : G * d);
+  float* q_sh = reinterpret_cast<float*>(v_sh + kSplitRows * ld);  // R x d
+  float* w_sh = q_sh + R * d;  // R x 64: scores, then weights
+  float* red_sh = w_sh + R * kSplitRows;
+  float* ks_sh = red_sh + split_red_floats<Load>(G, d);
   float* vs_sh = ks_sh + kSplitRows;  // scaled loads: 64 + 64
 
   // the merge launch may start; it waits for this grid to finish
@@ -439,10 +269,12 @@ decode_split_kernel(const void* __restrict__ q,
   const int tid = threadIdx.x;
   const int t0 = split * kSplitRows;
   const int last = min(kSplitRows, rows.cap() - t0) - 1;  // >= 0
-  const int n = min(last + 1, lengths[b] - t0);  // the split's valid rows
+  // window row v's valid rows in the split: min(last + 1, n0 + v)
+  const int n0 = lengths[b] + len_add - t0;
+  const int n = min(last + 1, n0 + V - 1);  // the widest window row's
 
   // Every global load is issued before any is waited on: the split's K/V
-  // rows that the sequence holds, copied to shared memory (the others
+  // rows up to the widest horizon, copied to shared memory (the others
   // zero-filled and masked below; addresses clamped to the cache, so they
   // do not wait on the length), their scales, and the query rows.
   for (int i = tid; i < kSplitRows * nch; i += kThreads) {
@@ -459,41 +291,44 @@ decode_split_kernel(const void* __restrict__ q,
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  const size_t q0 = (static_cast<size_t>(b) * H + kh * G) * d;
+  // element i of query row v * G + g is q[b, v, kh * G + g, i - (v G + g) d]
   float qx[kMaxAcc];
 #pragma unroll
   for (int j = 0; j < kMaxAcc; ++j) {
-    const int i = tid + j * kThreads;
-    qx[j] = i >= G * d ? 0.f
-            : q_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(q)[q0 + i])
-                     : static_cast<const float*>(q)[q0 + i];
+    const int i = tid + j * kThreads, v = kWindow ? i / (G * d) : 0;
+    const size_t qi =
+        (static_cast<size_t>(b * V + v) * H + kh * G) * d + (i - v * G * d);
+    qx[j] = i >= R * d ? 0.f
+            : q_bf16   ? to_f32(static_cast<const __nv_bfloat16*>(q)[qi])
+                       : static_cast<const float*>(q)[qi];
   }
-  float* pm = part + partial_offset(b, kh, split, K, gridDim.z, G, d);
-  if (n <= 0) {  // wholly past the sequence: drops out of the merge
-    for (int i = tid; i < G; i += kThreads) {
+  float* pm = part + partial_offset(b, kh, split, K, gridDim.z, R, d);
+  if (n <= 0) {  // wholly past every window row: drops out of the merge
+    for (int i = tid; i < R; i += kThreads) {
       pm[i] = kNegInf;
-      pm[G + i] = 0.f;
+      pm[R + i] = 0.f;
     }
-    for (int i = tid; i < G * d; i += kThreads) pm[2 * G + i] = 0.f;
+    for (int i = tid; i < R * d; i += kThreads) pm[2 * R + i] = 0.f;
     asm volatile("cp.async.wait_all;\n" ::: "memory");  // before exiting
     return;
   }
 #pragma unroll
   for (int j = 0; j < kMaxAcc; ++j) {
     const int i = tid + j * kThreads;
-    if (i < G * d) q_sh[i] = qx[j] * scale;
+    if (i < R * d) q_sh[i] = qx[j] * scale;
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  // scores: thread (row r, query rows g = gs, gs + 4, ...) takes the whole
-  // dot product of its staged K row, in kVec running sums over the row's
+  // scores: thread (row r, query rows gs, gs + 4, ...) takes the whole dot
+  // product of its staged K row, in kVec running sums over the row's
   // 16-byte chunks added at the end: no sums across lanes
   {
     constexpr int kRowSets = kThreads / kSplitRows;
     const int r = tid % kSplitRows;
     const uint4* krow = reinterpret_cast<const uint4*>(k_sh + r * ld);
-    for (int g = tid / kSplitRows; g < G; g += kRowSets) {
+    for (int g = tid / kSplitRows; g < R; g += kRowSets) {
+      const int nv = kWindow ? min(last + 1, n0 + g / G) : n;
       const float4* qg = reinterpret_cast<const float4*>(q_sh + g * d);
       float a[kVec];
 #pragma unroll
@@ -515,16 +350,17 @@ decode_split_kernel(const void* __restrict__ q,
 #pragma unroll
       for (int e = 1; e < kVec; ++e) sum += a[e];
       if constexpr (Load::kScaled) sum *= ks_sh[r];
-      w_sh[g * kSplitRows + r] = r < n ? sum : kNegInf;
+      w_sh[g * kSplitRows + r] = r < nv ? sum : kNegInf;
     }
   }
   __syncthreads();
 
   // the split's softmax: warp w takes query rows w, w + 8, ...; lane j
   // holds rows j and j + 32. P V's weights are p (times the row's V scale
-  // for scaled loads); l sums p.
+  // for scaled loads); l sums p. A query row with no valid row here gets
+  // m = -1e30, l = 0 (and acc = 0 below).
   const int lane = tid & 31, warp = tid >> 5;
-  for (int g = warp; g < G; g += kWarps) {
+  for (int g = warp; g < R; g += kWarps) {
     float* w = w_sh + g * kSplitRows;
     const float s0 = w[lane], s1 = w[lane + 32];
     const float m = warp_max(fmaxf(s0, s1));
@@ -540,69 +376,73 @@ decode_split_kernel(const void* __restrict__ q,
     }
     if (lane == 0) {
       pm[g] = m;
-      pm[G + g] = l;
+      pm[R + g] = l;
     }
   }
-  __syncthreads();
 
-  // acc = P V over the split's valid rows. Item (query row g, 16-byte
-  // chunk c of its output row); rs row slices per item, slice j summing
-  // rows j, j + rs, ... so that all threads work; the slices are then
-  // added in order 0, 1, ...
+  // acc = P V, one window row at a time over its own valid rows. Item
+  // (query head g, 16-byte chunk c of its output row); rs row slices per
+  // item, slice j summing rows j, j + rs, ... so that all threads work; the
+  // slices are then added in order 0, 1, .... Items and slices depend on G
+  // and d alone, never on V.
   const int items = G * nch, rs = max(1, kThreads / items);
-  for (int it = tid; it < items * rs; it += kThreads) {
-    const int slice = it / items, item = it - slice * items;
-    const int g = item / nch, c = item - g * nch;
-    const float* w = w_sh + g * kSplitRows;
-    float acc[kVec];
+  for (int v = 0; v < V; ++v) {
+    const int nv = min(last + 1, n0 + v);
+    __syncthreads();  // the weights, or the last window row's sums, are in
+    for (int it = tid; it < items * rs; it += kThreads) {
+      const int slice = it / items, item = it - slice * items;
+      const int g = item / nch, c = item - g * nch;
+      const float* w = w_sh + (v * G + g) * kSplitRows;
+      float acc[kVec];
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
+      for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
 #pragma unroll 4
-    for (int r = slice; r < n; r += rs) {
-      float x[kVec];
-      Load::vec(reinterpret_cast<const uint4*>(v_sh + r * ld)[c], x);
-      const float p = w[r];
+      for (int r = slice; r < nv; r += rs) {
+        float x[kVec];
+        Load::vec(reinterpret_cast<const uint4*>(v_sh + r * ld)[c], x);
+        const float p = w[r];
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[e] += p * x[e];
+        for (int e = 0; e < kVec; ++e) acc[e] += p * x[e];
+      }
+      float* red = red_sh + static_cast<size_t>(it) * kVec;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) red[e] = acc[e];
     }
-    float* red = red_sh + static_cast<size_t>(it) * kVec;
+    __syncthreads();
+    for (int it = tid; it < items; it += kThreads) {
+      const int g = it / nch, c = it - g * nch;
+      float acc[kVec];
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) red[e] = acc[e];
-  }
-  __syncthreads();
-  for (int it = tid; it < items; it += kThreads) {
-    const int g = it / nch, c = it - g * nch;
-    float acc[kVec];
+      for (int e = 0; e < kVec; ++e) acc[e] = red_sh[it * kVec + e];
+      for (int j = 1; j < rs; ++j) {
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[e] = red_sh[it * kVec + e];
-    for (int j = 1; j < rs; ++j) {
+        for (int e = 0; e < kVec; ++e)
+          acc[e] += red_sh[(static_cast<size_t>(j) * items + it) * kVec + e];
+      }
+      float* dst = pm + 2 * R + (v * G + g) * d + c * kVec;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e)
-        acc[e] += red_sh[(static_cast<size_t>(j) * items + it) * kVec + e];
+      for (int e = 0; e < kVec; ++e) dst[e] = acc[e];
     }
-    float* dst = pm + 2 * G + g * d + c * kVec;
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) dst[e] = acc[e];
   }
 }
 
 // Merge the splits of each (KV head, sequence) in order 0, 1, ... into
-// out (B, H, d) of type O (float or __nv_bfloat16): one thread per output
-// element, a grid of (KV head, sequence, ceil(G d / 256)). Splits are read
-// in chunks of kMergeRegs, each chunk's loads in flight together: a pass
-// for the largest m, then one for the weighted sums.
+// out (B, V, H, d) of type O (float or __nv_bfloat16): one thread per
+// output element, a grid of (KV head, sequence, ceil(R d / 256)). Splits
+// are read in chunks of kMergeRegs, each chunk's loads in flight together:
+// a pass for the largest m, then one for the weighted sums.
 template <typename O>
 __global__ void __launch_bounds__(kThreads)
 decode_merge_kernel(const float* __restrict__ part, O* __restrict__ out,
-                    int H, int K, int d, int nsplit) {
+                    int H, int K, int d, int V, int nsplit) {
   // launched while the split grid runs: wait for its partials
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const int kh = blockIdx.x, b = blockIdx.y, G = H / K;
+  const int kh = blockIdx.x, b = blockIdx.y, G = H / K, R = V * G;
   const int i = blockIdx.z * kThreads + threadIdx.x;
-  if (i >= G * d) return;
-  const int g = i / d;
-  const float* base = part + partial_offset(b, kh, 0, K, nsplit, G, d);
-  const size_t stride = static_cast<size_t>(G) * (d + 2);
+  if (i >= R * d) return;
+  const int g = i / d, v = V > 1 ? g / G : 0;
+  const float* base = part + partial_offset(b, kh, 0, K, nsplit, R, d);
+  const size_t stride = static_cast<size_t>(R) * (d + 2);
   float top = kNegInf;
   for (int s0 = 0; s0 < nsplit; s0 += kMergeRegs) {
     float m[kMergeRegs];
@@ -620,8 +460,8 @@ decode_merge_kernel(const float* __restrict__ part, O* __restrict__ out,
       const bool ok = s0 + s < nsplit;
       const float* p = base + (s0 + s) * stride;
       m[s] = ok ? p[g] : kNegInf;
-      l[s] = ok ? p[G + g] : 0.f;
-      a[s] = ok ? p[2 * G + i] : 0.f;
+      l[s] = ok ? p[R + g] : 0.f;
+      a[s] = ok ? p[2 * R + i] : 0.f;
     }
 #pragma unroll
     for (int s = 0; s < kMergeRegs; ++s) {
@@ -632,44 +472,47 @@ decode_merge_kernel(const float* __restrict__ part, O* __restrict__ out,
       }
     }
   }
-  out[(static_cast<size_t>(b) * H + kh * G) * d + i] =
+  out[(static_cast<size_t>(b * V + v) * H + kh * G) * d + (i - v * G * d)] =
       from_f32<O>(num / fmaxf(den, 1e-30f));
 }
 
-// Launch the split path for V = 1: q, out (B, H, d) contiguous in q's type
-// (q_dtype 0 float32, 1 bfloat16); ks, vs the per-row scales of a scaled
-// load (else null); part holds B * K * nsplit * G * (d + 2) floats,
-// nsplit = ceil(cap / kSplitRows). Refuses (cudaErrorInvalidValue) what the
-// path does not take: a head dim that is not a whole number of 16-byte
-// chunks or is above 256, more than 64 query rows per KV head or 4096
-// accumulators of them, a scaled load without scales. Every row must start
+// Launch one decode-attention call: q, out (B, V, H, d) contiguous in q's
+// type (q_dtype 0 float32, 1 bfloat16); ks, vs the per-row scales of a
+// scaled load (else null); part holds B * K * nsplit * V * (H / K) * (d + 2)
+// floats, nsplit = ceil(cap / kSplitRows). Refuses (cudaErrorInvalidValue)
+// what the kernel does not take: a head dim that is not a whole number of
+// 16-byte chunks or is above 256, more than 64 query rows per KV head
+// (V * H / K) or 4096 elements of them, a scaled load without scales,
+// window rows (V > 1 or len_add > 0) without kWindow. Every row must start
 // 16-byte aligned (the caller checks).
-template <typename Load, typename Rows>
+template <typename Load, bool kWindow, typename Rows>
 cudaError_t launch_decode_split(const void* q, const void* kc, const void* vc,
                                 const float* ks, const float* vs,
                                 const Rows& rows, const int* lengths,
                                 float* part, void* out, int B, int H, int K,
-                                int d, int nsplit, float scale, int q_dtype,
+                                int d, int V, int len_add, int nsplit,
+                                float scale, int q_dtype,
                                 cudaStream_t stream) {
   using E = typename Load::Elem;
   if (q_dtype != kF32 && q_dtype != kBF16) return cudaErrorInvalidValue;
-  if (K <= 0 || H % K || nsplit <= 0 || part == nullptr ||
-      (Load::kScaled && (ks == nullptr || vs == nullptr)))
+  if (K <= 0 || H % K || V < 1 || nsplit <= 0 || part == nullptr ||
+      (Load::kScaled && (ks == nullptr || vs == nullptr)) ||
+      (!kWindow && (V != 1 || len_add != 0)))
     return cudaErrorInvalidValue;
-  const int G = H / K;
-  if (d % Load::kVec || d > 256 || G > kMaxRows ||
-      G * d > kThreads * kMaxAcc)
+  const int G = H / K, R = V * G;
+  if (d % Load::kVec || d > 256 || R > kMaxRows ||
+      R * d > kThreads * kMaxAcc)
     return cudaErrorInvalidValue;
-  const int smem = split_smem_bytes<Load>(G, d);
+  const int smem = split_smem_bytes<Load>(G, R, d);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<Load, Rows>,
+      decode_split_kernel<Load, Rows, kWindow>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const bool q_bf16 = q_dtype == kBF16;
-  decode_split_kernel<Load, Rows><<<dim3(K, B, nsplit), kThreads, smem,
-                                    stream>>>(
+  decode_split_kernel<Load, Rows, kWindow>
+      <<<dim3(K, B, nsplit), kThreads, smem, stream>>>(
       q, static_cast<const E*>(kc), static_cast<const E*>(vc), ks, vs, rows,
-      lengths, part, H, K, d, scale, q_bf16);
+      lengths, part, H, K, d, V, len_add, scale, q_bf16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // programmatic dependent launch: the merge is scheduled while the split
@@ -678,7 +521,7 @@ cudaError_t launch_decode_split(const void* q, const void* kc, const void* vc,
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(K, B, (G * d + kThreads - 1) / kThreads);
+  cfg.gridDim = dim3(K, B, (R * d + kThreads - 1) / kThreads);
   cfg.blockDim = dim3(kThreads);
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -686,10 +529,34 @@ cudaError_t launch_decode_split(const void* q, const void* kc, const void* vc,
   const float* pc = part;
   if (q_bf16)
     return cudaLaunchKernelEx(&cfg, decode_merge_kernel<__nv_bfloat16>, pc,
-                              static_cast<__nv_bfloat16*>(out), H, K, d,
+                              static_cast<__nv_bfloat16*>(out), H, K, d, V,
                               nsplit);
   return cudaLaunchKernelEx(&cfg, decode_merge_kernel<float>, pc,
-                            static_cast<float*>(out), H, K, d, nsplit);
+                            static_cast<float*>(out), H, K, d, V, nsplit);
+}
+
+// The paged pools of kernels 1 and 6 (pool_dtype kF32, kBF16, kF16 or
+// kE4M3; float or fp8 codes, no scales): V window rows, nsplit =
+// ceil(P * ps / kSplitRows) from the table's width.
+template <typename Rows>
+cudaError_t launch_paged_split(const void* q, const void* kp, const void* vp,
+                               const Rows& rows, const int* lengths,
+                               float* part, void* out, int B, int H, int K,
+                               int d, int V, int len_add, int nsplit,
+                               float scale, int q_dtype, int pool_dtype,
+                               cudaStream_t s) {
+  if (nsplit != (rows.cap() + kSplitRows - 1) / kSplitRows)
+    return cudaErrorInvalidValue;
+#define TRAPTI_PAGED(LOAD)                                                \
+  launch_decode_split<LOAD, true>(q, kp, vp, nullptr, nullptr, rows,      \
+                                  lengths, part, out, B, H, K, d, V,      \
+                                  len_add, nsplit, scale, q_dtype, s)
+  if (pool_dtype == kF32) return TRAPTI_PAGED(LoadFloat<float>);
+  if (pool_dtype == kBF16) return TRAPTI_PAGED(LoadFloat<__nv_bfloat16>);
+  if (pool_dtype == kF16) return TRAPTI_PAGED(LoadFloat<__half>);
+  if (pool_dtype == kE4M3) return TRAPTI_PAGED(LoadE4M3);
+#undef TRAPTI_PAGED
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

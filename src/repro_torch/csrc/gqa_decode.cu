@@ -14,7 +14,7 @@
 // strides.
 //
 // Bound on the H100: bytes (each valid K and V row read once; about
-// 4 * H * d flops per row). It runs the template's split-context path: a
+// 4 * H * d flops per row). It runs the template's split kernels: a
 // grid of (KV head, sequence, ceil(T / 64)) blocks, each over 64 fixed
 // cache rows, then a merge launch of one thread per output element (160 +
 // 48 blocks for dsr1d at batch 8 and T 640, 20 + 6 at batch 1, where one
@@ -42,9 +42,10 @@ TRAPTI_EXPORT int gqa_decode_fwd(const void* q, const void* k, const void* v,
   if (nsplit != (T + kSplitRows - 1) / kSplitRows)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
-#define TRAPTI_DENSE(LOAD)                                               \
-  launch_decode_split<LOAD>(q, k, v, nullptr, nullptr, rows, lens, part, \
-                            out, B, H, K, d, nsplit, scale, q_dtype, s)
+#define TRAPTI_DENSE(LOAD)                                                \
+  launch_decode_split<LOAD, false>(q, k, v, nullptr, nullptr, rows, lens, \
+                                   part, out, B, H, K, d, 1, 0, nsplit,   \
+                                   scale, q_dtype, s)
   if (cache_dtype == kF32) err = TRAPTI_DENSE(LoadFloat<float>);
   else if (cache_dtype == kBF16) err = TRAPTI_DENSE(LoadFloat<__nv_bfloat16>);
   else if (cache_dtype == kF16) err = TRAPTI_DENSE(LoadFloat<__half>);

@@ -43,7 +43,8 @@ def gqa_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          v_scale: torch.Tensor = None) -> torch.Tensor:
     """The split-context arithmetic, arguments as `gqa_decode_ref`. Split s
     covers cache rows [s * split_rows, (s + 1) * split_rows); the split
-    count, ceil(T / split_rows), depends on T only. Each split keeps a
+    count, ceil(T / split_rows), depends on T only. Rows past lengths[b]
+    are zeros, as the kernel's copies leave them. Each split keeps a
     float32 partial (m, l, acc) of its valid rows; a split wholly past
     lengths[b] keeps m = -1e30, l = 0, acc = 0. The merge weighs split s by
     exp(m_s - max m) (0 where m_s <= -1e30 / 2) and sums in the fixed order
@@ -57,18 +58,20 @@ def gqa_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K, T = k.shape[1], k.shape[2]
     G = H // K
     ns = -(-T // split_rows)
+    t = torch.arange(ns * split_rows, device=q.device).reshape(ns, split_rows)
+    n = torch.clamp(lengths.to(q.device).long(), max=T)
+    valid = (t[None] < n[:, None, None])[:, None, None]   # (B, 1, 1, ns, r)
+    # rows past the sequence are zero-filled, not read, as the kernel's
+    # copies are (a NaN there never meets p = 0)
     pad = (0, 0, 0, ns * split_rows - T)
-    kf = F.pad(k.float(), pad).reshape(B, K, ns, split_rows, d)
-    vf = F.pad(v.float(), pad).reshape(B, K, ns, split_rows, d)
+    kf, vf = (torch.where(valid[:, :, 0, ..., None], F.pad(
+        x.float(), pad).reshape(B, K, ns, split_rows, d), 0.0) for x in (k, v))
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
     qs = q.float().reshape(B, K, G, d) * scale
     s = torch.einsum("bkgd,bknrd->bkgnr", qs, kf)
     if k_scale is not None:
         s = s * F.pad(k_scale.float(), pad[2:]).reshape(
             B, K, 1, ns, split_rows)
-    t = torch.arange(ns * split_rows, device=q.device).reshape(ns, split_rows)
-    n = torch.clamp(lengths.to(q.device).long(), max=T)
-    valid = (t[None] < n[:, None, None])[:, None, None]
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = s.amax(-1)                                        # (B, K, G, ns)
     p = torch.exp(s - m[..., None])

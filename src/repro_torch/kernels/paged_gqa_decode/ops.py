@@ -8,11 +8,9 @@ float32 or bfloat16 query; `paged_gqa_decode_quant` replaces
 `paged_gqa_decode_quant_kernel` (body `_paged_decode_quant_kernel`) for int8
 pools with per-row float32 scales. The paged decode step calls one of them
 for every token of every layer. Both launch from
-`csrc/paged_gqa_decode.cu` (the kernel template is
-`csrc/decode_attention.cuh`), as two kernels with their own launch
-counts: `paged_gqa_decode` on the template's unsplit path, shared row for
-row with verification, and `paged_gqa_decode_quant` on its split-context
-path, as `gqa_decode` runs."""
+`csrc/paged_gqa_decode.cu`, as two kernels with their own launch counts,
+and run the split-context kernels of `csrc/decode_attention.cuh`, which
+verification and `gqa_decode` run too."""
 from __future__ import annotations
 
 import ctypes
@@ -38,7 +36,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 KERNEL = build.register(build.CudaKernel(
     "paged_gqa_decode", "paged_gqa_decode", "paged_gqa_decode_fwd",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]))
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+     _P]))
 QUANT_KERNEL = build.register(build.CudaKernel(
     "paged_gqa_decode_quant", "paged_gqa_decode", "paged_gqa_decode_quant_fwd",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
@@ -73,6 +72,27 @@ def check_paged(name, q, k_pages, v_pages, page_table, lengths):
     return (B, H, K, d, ps, P, N), table, lens
 
 
+def check_split(name, k_pages, v_pages):
+    """The kernels copy pool rows in 16-byte pieces: the head dim must be a
+    whole number of them (a multiple of 4 float32, 8 bfloat16 / float16 or
+    16 fp8 / int8 elements) and the pools 16-byte aligned."""
+    d, vec = k_pages.shape[-1], 16 // k_pages.element_size()
+    if d % vec or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{name}: head_dim {d} must be a multiple of {vec} "
+                         f"for {k_pages.dtype} pools and the pools 16-byte "
+                         f"aligned")
+
+
+def split_workspace(q, dims, rows) -> tuple:
+    """(nsplit, workspace) of a paged call with `rows` query rows per KV
+    head: `num_splits(P * ps)` splits per (slot, KV head), each holding m
+    and l of every query row, then its d accumulators."""
+    B, H, K, d, ps, P, N = dims
+    nsplit = num_splits(P * ps)
+    return nsplit, torch.empty(B * K * nsplit * rows * (d + 2),
+                               dtype=torch.float32, device=q.device)
+
+
 def paged_gqa_decode(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, page_table: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
@@ -83,7 +103,15 @@ def paged_gqa_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
     Query head h reads KV head h // (H // K). Lengths past P*ps are clamped
     to the table, so a slot whose table points at the null page reads only
-    in-bounds rows."""
+    in-bounds rows.
+
+    On the card the kernel runs `num_splits(P * ps)` blocks per (KV head,
+    slot), each over a fixed slice of 64 table rows, into a float32
+    workspace, then merges the slices in a fixed order
+    (`paged_gqa_decode_split_ref` repeats its arithmetic); the split count
+    depends on the table's width only, so reading it needs no host sync and
+    a slot's output does not depend on its batch. See `check_split` for the
+    head dims and alignment it takes."""
     if q.device.type != "cuda":
         return paged_gqa_decode_ref(q, k_pages, v_pages, page_table, lengths)
     dims, table, lens = check_paged("paged_gqa_decode", q, k_pages,
@@ -91,13 +119,15 @@ def paged_gqa_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if k_pages.dtype not in POOL_DTYPES:
         raise TypeError(f"paged_gqa_decode: pools must be float32, bfloat16, "
                         f"float16 or fp8 codes, got {k_pages.dtype}")
+    check_split("paged_gqa_decode", k_pages, v_pages)
     B, H, K, d, ps, P, N = dims
     q = q.contiguous()
     out = torch.empty_like(q)
+    nsplit, work = split_workspace(q, dims, H // K)
     KERNEL(build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
-           build.ptr(table), build.ptr(lens), build.ptr(out), B, H, K, d, ps,
-           P, N, 1.0 / math.sqrt(d), Q_DTYPES[q.dtype],
-           POOL_DTYPES[k_pages.dtype], build.stream_ptr(q))
+           build.ptr(table), build.ptr(lens), build.ptr(out), build.ptr(work),
+           B, H, K, d, ps, P, N, 1.0 / math.sqrt(d), Q_DTYPES[q.dtype],
+           POOL_DTYPES[k_pages.dtype], nsplit, build.stream_ptr(q))
     return out
 
 
@@ -109,14 +139,9 @@ def paged_gqa_decode_quant(q: torch.Tensor, k_pages: torch.Tensor,
     float32 scales k_scale, v_scale (N, K, ps); otherwise as
     `paged_gqa_decode`. -> (B, H, d) in q's dtype.
 
-    On the card the kernel runs `num_splits(P * ps)` blocks per (KV head,
-    slot), each over a fixed slice of 64 table rows, into a float32
-    workspace, then merges the slices in a fixed order
-    (`paged_gqa_decode_quant_split_ref` repeats its arithmetic); the split
-    count depends on the table's width only, so reading it needs no host
-    sync and a slot's output does not depend on its batch. It copies rows
-    in 16-byte pieces: d must be a multiple of 16 and the pools 16-byte
-    aligned."""
+    On the card it runs as `paged_gqa_decode` does
+    (`paged_gqa_decode_quant_split_ref` repeats its arithmetic): d must be
+    a multiple of 16 and the pools 16-byte aligned."""
     if q.device.type != "cuda":
         return paged_gqa_decode_quant_ref(q, k_pages, v_pages, k_scale,
                                           v_scale, page_table, lengths)
@@ -132,16 +157,10 @@ def paged_gqa_decode_quant(q: torch.Tensor, k_pages: torch.Tensor,
             raise ValueError(f"paged_gqa_decode_quant: scales must be "
                              f"contiguous float32 {(N, K, ps)}, got "
                              f"{s.dtype} {tuple(s.shape)}")
-    if d % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError(f"paged_gqa_decode_quant: head_dim {d} must be a "
-                         f"multiple of 16 and the pools 16-byte aligned")
+    check_split("paged_gqa_decode_quant", k_pages, v_pages)
     q = q.contiguous()
     out = torch.empty_like(q)
-    nsplit = num_splits(P * ps)
-    # per (slot, KV head, split): m and l of each query row, then its d
-    # accumulators
-    work = torch.empty(B * K * nsplit * (H // K) * (d + 2),
-                       dtype=torch.float32, device=q.device)
+    nsplit, work = split_workspace(q, dims, H // K)
     QUANT_KERNEL(build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
                  build.ptr(k_scale), build.ptr(v_scale), build.ptr(table),
                  build.ptr(lens), build.ptr(out), build.ptr(work), B, H, K,

@@ -7,9 +7,9 @@ pool[page_table[b, t // ps], :, t % ps] for t < lengths[b]; rows past
 `lengths` (the tail of a partial last page and the null-page slots) are
 masked out. Pools may hold any float dtype or fp8 E4M3 codes (uint8); int8
 pools with per-row float32 scales go through the `*_quant_*` versions.
-`paged_gqa_decode_quant_split_ref` repeats the int8 kernel's split-context
-arithmetic (`csrc/decode_attention.cuh`) and is the yardstick it is held
-to: tests only."""
+`paged_gqa_decode_split_ref` and `paged_gqa_decode_quant_split_ref` repeat
+the kernels' split-context arithmetic (`csrc/decode_attention.cuh`) and are
+the yardsticks they are held to: tests only."""
 from __future__ import annotations
 
 import math
@@ -66,6 +66,22 @@ def paged_gqa_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
     p = torch.where(valid, p, torch.zeros_like(p))
     out = torch.einsum("bkgt,bktd->bkgd", p, v)
     return out.reshape(B, H, d).to(q.dtype)
+
+
+def paged_gqa_decode_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               page_table: torch.Tensor,
+                               lengths: torch.Tensor,
+                               split_rows: int = SPLIT_ROWS) -> torch.Tensor:
+    """The float and fp8 pools' kernel arithmetic, arguments as
+    `paged_gqa_decode_ref`: each slot's pages gathered into (B, K, P*ps, d)
+    float32 rows (fp8 codes decoded by table), then `gqa_decode_split_ref`
+    over them. Split s covers table rows [s * split_rows, (s + 1) *
+    split_rows), and the split count, ceil(P * ps / split_rows), depends on
+    the table's width only; the splits merge in the fixed order 0, 1, ..."""
+    k = _gather_pool_f32(k_pages, page_table)
+    v = _gather_pool_f32(v_pages, page_table)
+    return gqa_decode_split_ref(q, k, v, lengths, split_rows)
 
 
 def paged_gqa_decode_quant_mirror_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -5,8 +5,9 @@ card, its plain version on the CPU.
 (`repro/kernels/paged_gqa_verify/kernel.py`, body `_paged_verify_kernel`)
 for float32 / bfloat16 / float16 pools and fp8 E4M3 code pools (uint8)
 under a float32 or bfloat16 query. The speculative verify step calls it
-once per target layer per round. Source: `csrc/paged_gqa_verify.cu` (the
-kernel template is `csrc/decode_attention.cuh`, shared with paged decode)."""
+once per target layer per round. Source: `csrc/paged_gqa_verify.cu`, over
+the split-context kernels of `csrc/decode_attention.cuh` that paged decode
+runs, row for row."""
 from __future__ import annotations
 
 import ctypes
@@ -16,12 +17,14 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_gqa_decode.ops import (POOL_DTYPES, Q_DTYPES,
-                                                      check_paged)
+                                                      check_paged,
+                                                      check_split,
+                                                      split_workspace)
 from repro_torch.kernels.paged_gqa_verify.ref import paged_gqa_verify_ref
 
-# query rows a block holds (window rows x group), and the accumulators its
-# threads hold (rows x head_dim): csrc/decode_attention.cuh kMaxRows and
-# kThreads * kMaxAcc
+# query rows a block holds (window rows x group), and the query elements
+# its threads hold (rows x head_dim): csrc/decode_attention.cuh kMaxRows
+# and kThreads * kMaxAcc
 MAX_ROWS = 64
 MAX_ROW_ELEMS = 4096
 
@@ -29,8 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = build.register(build.CudaKernel(
     "paged_gqa_verify", "paged_gqa_verify", "paged_gqa_verify_fwd",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, _I, _I, _P]))
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+     ctypes.c_float, _I, _I, _I, _P]))
 
 
 def paged_gqa_verify(q: torch.Tensor, k_pages: torch.Tensor,
@@ -41,7 +44,11 @@ def paged_gqa_verify(q: torch.Tensor, k_pages: torch.Tensor,
     (N, K, ps, d) float32, bfloat16, float16 or fp8 E4M3 codes (uint8);
     page_table: (B, P) int32 page ids; base_lens: (B,) int32 context lengths
     before the window. -> (B, V, H, d) in q's dtype; row v attends
-    base_lens + v + 1 tokens (clamped to the table)."""
+    base_lens + v + 1 tokens (clamped to the table).
+
+    On the card row v is, bit for bit, `paged_gqa_decode` at
+    base_lens + v + 1 (`paged_gqa_verify_split_ref` repeats the
+    arithmetic), with the same head dims and alignment."""
     if q.device.type != "cuda":
         return paged_gqa_verify_ref(q, k_pages, v_pages, page_table,
                                     base_lens)
@@ -60,12 +67,14 @@ def paged_gqa_verify(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(
             f"paged_gqa_verify: {V} window rows x group {H // K} = {rows} "
             f"query rows of head_dim {d} exceed the kernel's {MAX_ROWS} rows "
-            f"/ {MAX_ROW_ELEMS} accumulators per block; use a smaller "
+            f"/ {MAX_ROW_ELEMS} query elements per block; use a smaller "
             "speculate_k")
+    check_split("paged_gqa_verify", k_pages, v_pages)
     q = q.contiguous()
     out = torch.empty_like(q)
+    nsplit, work = split_workspace(q, dims, rows)
     KERNEL(build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
-           build.ptr(table), build.ptr(lens), build.ptr(out), B, V, H, K, d,
-           ps, P, N, 1.0 / math.sqrt(d), Q_DTYPES[q.dtype],
-           POOL_DTYPES[k_pages.dtype], build.stream_ptr(q))
+           build.ptr(table), build.ptr(lens), build.ptr(out), build.ptr(work),
+           B, V, H, K, d, ps, P, N, 1.0 / math.sqrt(d), Q_DTYPES[q.dtype],
+           POOL_DTYPES[k_pages.dtype], nsplit, build.stream_ptr(q))
     return out

@@ -476,3 +476,89 @@ def test_quant_decode_split_kernel_on_card(H, K, d):
             one = paged_gqa_decode_quant(q[b:b + 1].to(qd), kp, vp, ks, vs,
                                          table[b:b + 1], lens[b:b + 1])
             assert torch.equal(one, got[b:b + 1]), b
+
+
+def _nan_past_lengths(pool, table, lengths, first):
+    """fp8 codes of each non-null slot's pages at positions >= first[b] set
+    to the NaN code 0x7F: rows the kernels must not read."""
+    ps = pool.shape[2]
+    pool = pool.clone()
+    for b in range(1, table.shape[0]):
+        for t in range(int(first[b]), -(-int(lengths[b]) // ps) * ps):
+            pool[int(table[b, t // ps]), :, t % ps] = 0x7F
+    return pool
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,K,d", [(12, 2, 128), (25, 25, 64), (4, 4, 16)])
+def test_paged_decode_and_verify_split_kernels_on_card(H, K, d):
+    """Kernels 1 and 6 on the split-context path, through a 1152-row table
+    (18 splits, so the merge reads two chunks of 16), on float32, bfloat16,
+    float16 and fp8 pools under a float32 and a bfloat16 query: against
+    their split mirrors element by element (float32 2e-5; bf16 within one
+    bf16 step of the mirror plus MIRROR_ATOL), with a null-page slot, a
+    one-row slot and lengths on both sides of split edges; each slot's
+    batch-1 call equals its row of the batch-8 call; verify row v equals
+    kernel 1 at base + v + 1. fp8 pages hold the NaN code past what any
+    window row reads, which the kernels must leave unread."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import MIRROR_ATOL, bf16_excess
+    from repro_torch.kernels.paged_gqa_decode import (
+        paged_gqa_decode_split_ref)
+    from repro_torch.kernels.paged_gqa_verify import (
+        paged_gqa_verify, paged_gqa_verify_split_ref)
+    from repro_torch.kernels.quant import to_fp8_codes
+    V = 4
+    lengths = (1, 1, 64, 65, 1023, 1024, 1025, 1152)
+    q, kf, vf, table, lens = (torch.from_numpy(x).to("cuda") for x in
+                              _paged_case(d + H, H, K, d=d, ps=16, N=300,
+                                          P=72, lengths=lengths))
+    qv = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (len(lengths), V, H, d)).astype(np.float32)).cuda()
+    base = (lens - V).clamp(min=0)
+    fp8 = [_nan_past_lengths(to_fp8_codes(x), table, lens,
+                             torch.maximum(lens, base + V)) for x in (kf, vf)]
+    for pools in ((kf, vf), (kf.bfloat16(), vf.bfloat16()),
+                  (kf.half(), vf.half()), fp8):
+        for qd in (torch.float32, torch.bfloat16):
+            for fn, mirror, x, n in (
+                    (paged_gqa_decode, paged_gqa_decode_split_ref, q, lens),
+                    (paged_gqa_verify, paged_gqa_verify_split_ref, qv,
+                     base)):
+                got = fn(x.to(qd), *pools, table, n)
+                want = mirror(x.to(qd), *pools, table, n)
+                assert got.dtype == qd and got.shape == x.shape
+                assert bool(torch.isfinite(got.float()).all())
+                if qd == torch.float32:
+                    assert (got - want).abs().max().item() <= ATOL
+                else:
+                    assert bf16_excess(got, want) <= MIRROR_ATOL
+                for b in range(len(lengths)):
+                    one = fn(x[b:b + 1].to(qd), *pools, table[b:b + 1],
+                             n[b:b + 1])
+                    assert torch.equal(one, got[b:b + 1]), b
+                if fn is paged_gqa_verify:
+                    for v in range(V):
+                        assert torch.equal(got[:, v], paged_gqa_decode(
+                            qv[:, v].to(qd), *pools, table, base + v + 1))
+
+
+@pytest.mark.gpu
+def test_fp8_decode_of_every_code_on_card():
+    """The kernels' E4M3 decode gives each of the 256 codes exactly as the
+    plain version's table (NaN for 0x7F / 0xFF): one slot of length 1
+    whose V row holds every code comes out as that row, since p = 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.quant import fp8_table
+    kp = torch.zeros((2, 1, 16, 256), dtype=torch.uint8, device="cuda")
+    vp = kp.clone()
+    vp[1, 0, 0] = torch.arange(256, dtype=torch.uint8)
+    q = torch.zeros((1, 1, 256), device="cuda")
+    table = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+    got = paged_gqa_decode(q, kp, vp, table,
+                           torch.ones(1, dtype=torch.int32, device="cuda"))
+    want = fp8_table().cuda()
+    assert torch.equal(got[0, 0].isnan(), want.isnan())
+    assert torch.equal(got[0, 0].nan_to_num(), want.nan_to_num())
