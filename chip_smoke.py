@@ -21,6 +21,11 @@ the 256-entry table; the int8 matmul's int32 accumulators are held
 exactly and its output bit for bit. Prefill, dense decode, paged decode,
 verify and the int8 matmul also get device times from a CUDA graph,
 beside one library call's where there is one (SDPA, `torch._int_mm`).
+The bank kernels are also run at a million segments (360 candidates, and
+the pruned sweep's single incumbent), where the exact kernel's scan and
+walk are timed apart beside the serial floor (a small kernel adding the
+trace's length of f64 numbers in one thread) and its running time is held
+to np.cumsum bit for bit; both bank kernels give the same bits twice.
 Each phase prints one JSON line; the last three lines
 are the kernel summary, the card's `nvidia-smi` name and power limit, then
 
@@ -75,9 +80,15 @@ SOURCE = {
     "paged_gqa_verify": "src/repro_torch/csrc/paged_gqa_verify.cu",
     "gqa_decode": "src/repro_torch/csrc/gqa_decode.cu",
 }
-# the kernels of the bf16 main path (serve + sweep)
+# the kernels of the bf16 main path (serve + sweep); `running_time` is the
+# exact bank kernel's scan, launched once per sweep
 MAIN_PATH_KERNELS = ("paged_gqa_decode", "flash_attention",
                      "exact_bank_stats", "bank_energy")
+BANK_VARIANT = {
+    "exact_bank_stats": "sequential f64 scan, then a segment-parallel event "
+                        "walk (chunk summaries, prefix max over chunks)",
+    "bank_energy": "one pass: tiles x candidate groups, per-tile partials "
+                   "reduced in tile order"}
 KV_DTYPES = ("native", "int8", "fp8")
 # full-width dsr1d SwiGLU: M = the serve's longest prompt, D 1536, F 8960
 FFN_SHAPES = ((1536, 8960), (8960, 1536))
@@ -157,6 +168,52 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def serial_floor_ms(S: int) -> float:
+    """Milliseconds of S dependent f64 additions in one thread on the card
+    (`serial_floor_f64` of csrc/bank_energy.cu; CUDA events, median of 5),
+    the serial floor of the exact kernel's running time."""
+    import ctypes
+    from repro_torch.kernels import build
+    floor = build.CudaKernel("serial_floor", "bank_energy",
+                             "serial_floor_f64",
+                             [ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_longlong, ctypes.c_void_p])
+    x = torch.rand(4, dtype=torch.float64, device="cuda") * 1e-3
+    out = torch.empty(1, dtype=torch.float64, device="cuda")
+    return cuda_ms(lambda: floor(build.ptr(x), build.ptr(out), S,
+                                 build.stream_ptr(x)), reps=5, warmup=1)
+
+
+def profiled_kernels(fn, calls: int = 5) -> dict:
+    """{kernel name: device milliseconds per call} of the kernels `fn`
+    launches, PyTorch's own and copies left out, from torch.profiler's
+    trace of `calls` calls ({} if the trace holds no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t and not any(x in ev.key for x in ("at::", "Memcpy", "Memset",
+                                                "Activity")):
+            out[ev.key[:64]] = float(t) / calls / 1e3
+    return out
+
+
+def kernel_ms(profile: dict, names):
+    """The device milliseconds of `profiled_kernels`' result in the kernels
+    whose names contain one of `names` (None if it holds none of them)."""
+    times = [t for k, t in profile.items() if any(n in k for n in names)]
+    return sum(times) if times else None
 
 
 def prompt_lengths() -> np.ndarray:
@@ -589,24 +646,35 @@ def int8_mm_row(gen, M, K, N) -> dict:
 
 
 # -------------------------------------------------------------- bank kernels
-def bank_case(durations, occupancy, usable, nbanks, threshold) -> dict:
+def bank_case(durations, occupancy, usable, nbanks, threshold,
+              at_scale: bool = False) -> dict:
     """Both bank kernels against their plain versions on one trace and
-    candidate grid; counts must match exactly, seconds to rel 1e-12."""
+    candidate grid; counts must match exactly, seconds to rel 1e-12, and a
+    second call must give the same bits. `at_scale` adds the variant, the
+    device time from the profiler, and for the exact kernel the scan and
+    the walk timed apart (CUDA events around each launch) beside the
+    serial floor, after checking the card's running time against np.cumsum
+    bit for bit."""
     from repro_torch.kernels.bank_energy import (bank_activity_stats,
                                                  bank_energy_ref,
                                                  exact_bank_stats,
-                                                 exact_bank_stats_ref)
+                                                 exact_bank_stats_ref,
+                                                 running_time)
     t = [torch.as_tensor(np.asarray(x, np.float64), device="cuda")
          for x in (durations, occupancy, usable, nbanks, threshold)]
     d, o, u, nb, th = t
     S, C = len(d), len(u)
-    out = {}
-    for name, fn, ref, args, cnt, sec in (
+    out, profs = {}, {}
+    for name, fn, ref, args, cnt, sec, kern in (
             ("exact_bank_stats", exact_bank_stats, exact_bank_stats_ref,
-             (d, o, u, nb, th), [1, 3], [0, 2, 4]),
+             (d, o, u, nb, th), [1, 3], [0, 2, 4],
+             ("running_time_kernel", "exact_walk_kernel",
+              "exact_resolve_kernel")),
             ("bank_energy", bank_activity_stats, bank_energy_ref,
-             (d, o, u, nb), [1], [0])):
+             (d, o, u, nb), [1], [0],
+             ("bank_energy_kernel", "energy_reduce_kernel"))):
         got = fn(*args)
+        again = fn(*args)
         want = ref(*args)
         torch.cuda.synchronize()
         check(bool(torch.equal(got[:, cnt], want[:, cnt])),
@@ -614,6 +682,9 @@ def bank_case(durations, occupancy, usable, nbanks, threshold) -> dict:
         rel = float(((got[:, sec] - want[:, sec]).abs()
                      / want[:, sec].abs().clamp_min(1e-300)).max())
         check(rel <= 1e-12, f"{name}: seconds rel err {rel}")
+        repeat = float((got - again).abs().max())
+        check(bool(torch.equal(got, again)),
+              f"{name}: two calls differ by {repeat}")
         ncols = got.shape[1]
         nbytes = 16 * S + 8 * C * (len(args) - 2) + 8 * C * ncols
         flops = 4.0 * S * C
@@ -621,10 +692,31 @@ def bank_case(durations, occupancy, usable, nbanks, threshold) -> dict:
         out[name] = dict(shape=f"S{S} C{C}", dtype="float64",
                          max_abs_err=max_err(got, want), max_rel_err=rel,
                          tolerance="counts exact, seconds rel 1e-12",
+                         repeat_max_abs_diff=repeat,
                          ms=cuda_ms(lambda: fn(*args), reps=5),
                          plain_ms=cuda_ms(lambda: ref(*args), reps=2,
                                           warmup=1),
                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if at_scale:
+            profs[name] = profiled_kernels(lambda: fn(*args))
+            out[name].update(variant=BANK_VARIANT[name],
+                             device_ms=kernel_ms(profs[name], kern))
+    if at_scale:
+        cum = running_time(d)
+        want = np.r_[0.0, np.cumsum(np.asarray(durations, np.float64))]
+        check(bool(np.array_equal(cum.cpu().numpy().view(np.int64),
+                                  want.view(np.int64))),
+              f"running time at S{S} equals np.cumsum bit for bit")
+        prof = profs["exact_bank_stats"]
+        out["exact_bank_stats"].update(
+            scan_device_ms=kernel_ms(prof, ("running_time_kernel",)),
+            walk_device_ms=kernel_ms(prof, ("exact_walk_kernel",
+                                            "exact_resolve_kernel")),
+            running_time_equals_np_cumsum=True,
+            scan_ms=cuda_ms(lambda: running_time(d), reps=5),
+            walk_ms=cuda_ms(lambda: exact_bank_stats(d, o, u, nb, th,
+                                                     cum=cum), reps=5),
+            serial_floor_ms=serial_floor_ms(S))
     return out
 
 
@@ -882,6 +974,8 @@ def main() -> None:
     check(len(table.rows) > 0, "sweep table is non-empty")
     for name in MAIN_PATH_KERNELS:
         check(launches[name] > 0, f"main path launched {name}")
+    check(launches["running_time"] == 1,
+          f"the pruned sweep ran the scan once ({launches['running_time']})")
     plain = sweep(bundle, device="cpu", **sweep_kw)
     check([(r.capacity_mib, r.banks) for r in table.rows]
           == [(r.capacity_mib, r.banks) for r in plain.rows],
@@ -911,9 +1005,12 @@ def main() -> None:
     bank_main = bank_case(dur, occ, [c.usable_bytes for c in cands],
                           [float(c.banks) for c in cands], th)
     t0 = time.perf_counter()
-    bank_big = bank_case(*synthetic_trace(1 << 20, 360))
+    big = synthetic_trace(1 << 20, 360)
+    bank_big = bank_case(*big, at_scale=True)
+    # the pruned sweep's incumbent call: the same trace, one candidate
+    bank_one = bank_case(*big[:2], *(x[:1] for x in big[2:]), at_scale=True)
     emit("bank_kernels", main_path=bank_main, synthetic_1m_x_360=bank_big,
-         wall_s=time.perf_counter() - t0)
+         synthetic_1m_x_1=bank_one, wall_s=time.perf_counter() - t0)
 
     # ---- serve_quant: the same stream with int8 and with fp8 pages ----
     quant = {}
@@ -1067,7 +1164,8 @@ def main() -> None:
                        rows["paged_gqa_decode_quant"][0]),
                       ("int8_matmul", rows["int8_matmul"][0]),
                       ("exact_bank_stats",
-                       dict(bank_main["exact_bank_stats"], dtype="float64")),
+                       dict(bank_main["exact_bank_stats"], dtype="float64",
+                            scan_launches=launches["running_time"])),
                       ("bank_energy",
                        dict(bank_main["bank_energy"], dtype="float64")),
                       ("paged_gqa_verify", rows["paged_gqa_verify"][0]),
@@ -1081,7 +1179,8 @@ def main() -> None:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"], dtype=row["dtype"],
             **{key: row[key] for key in ("variant", "device_ms",
-                                         "library_device_ms") if key in row}))
+                                         "library_device_ms",
+                                         "scan_launches") if key in row}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,11 +18,31 @@ them (8 slots of dsr1d-qwen-1.5b mid-decode, bf16 query):
 * `gqa_decode` (Pallas kernel 7) on a bf16 dense cache of 640 rows, the
   dense serve's, through the (B, K, T, d) view the decode step passes;
 * `int8_matmul` (Pallas kernel 8) at the int8 SwiGLU's two shapes, with
-  `torch._int_mm` plus the same epilogue as the yardstick.
+  `torch._int_mm` plus the same epilogue as the yardstick;
+* `exact_bank_stats` and `bank_energy` (Pallas kernels 3 and 4) on
+  `chip_smoke.py`'s synthetic trace of 2^20 segments with 360 candidates,
+  the same trace with its first candidate alone (the pruned sweep's
+  incumbent call), the same 360 candidates on the trace's occupancy
+  raised by 1 MiB (never empty: the synthetic occupancy is 0 in 93% of
+  its segments), and a synthetic trace of the serve sweep's size (24
+  segments, 15 candidates);
+* the stage2 phase's pruned sweep at that size: one `evaluate_candidates`
+  call, what `sweep` runs, over the sweep's 15 candidates.
 
-Inputs come from the same seeded generator in every subprocess. Each case
-reports `device_ms` (a CUDA graph of 20 calls) and `ms` (CUDA events
-around one call), as `chip_smoke.py` times them. One JSON line per tree and
+Inputs come from the same seeded generator in every subprocess. Each
+attention and int8 case reports `device_ms` (a CUDA graph of 20 calls) and
+`ms` (CUDA events around one call), as `chip_smoke.py` times them. The bank
+rows report `ms` (CUDA events around one call; their wrappers sync the host
+once, so they cannot be graph-captured), `device` (device milliseconds per
+call of each kernel, from torch.profiler), and for kernel 3 `scan_ms` and
+`walk_ms`, CUDA events around the scan's launch and around the walk's on
+a finished running time, beside `serial_floor_ms`, S dependent f64
+additions in one thread (a tree without `serial_floor_f64` leaves it
+out). A tree whose wrapper has no separate scan has its scan timed by
+calling its entry point with no candidates, which runs the scan and then
+has its empty walk refused. The sweep row reports `ms`, the host's wall
+clock per call with the card synchronized (median of 50). `--only bank`
+times the bank kernels and the sweep alone. One JSON line per tree and
 run, then a summary line with the card's `nvidia-smi` name and power
 limit; `--out` also writes the lines to FILE. Needs a CUDA card.
 """
@@ -30,14 +50,99 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 
 
-def measure(tree: Path) -> dict:
+def bank_rows(cs) -> list:
+    """Kernels 3 and 4 of the tree on the path at three shapes."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import bank_energy as be
+    big = cs.synthetic_trace(1 << 20, 360)
+    # the same trace never empty (93% of the synthetic occupancies are 0)
+    dense = (big[0], big[1] + 2.0**20, *big[2:])
+    rows = []
+    for tag, case in (("S1M C360", big), ("S1M C360 dense", dense),
+                      ("S1M C1", (*big[:2], *(x[:1] for x in big[2:]))),
+                      ("S24 C15", cs.synthetic_trace(24, 15))):
+        d, o, u, nb, th = (torch.as_tensor(np.asarray(x, np.float64),
+                                           device="cuda") for x in case)
+        S = len(d)
+        reps = 10 if S > 1000 else 20
+        exact = dict(kernel="exact_bank_stats", shape=tag,
+                     ms=cs.cuda_ms(lambda: be.exact_bank_stats(
+                         d, o, u, nb, th), reps=reps),
+                     device=cs.profiled_kernels(lambda: be.exact_bank_stats(
+                         d, o, u, nb, th)))
+        if hasattr(build.library("bank_energy"), "serial_floor_f64"):
+            exact.update(serial_floor_ms=cs.serial_floor_ms(S))
+        if hasattr(be, "running_time"):
+            cum = be.running_time(d)
+            exact.update(
+                scan_ms=cs.cuda_ms(lambda: be.running_time(d), reps=reps),
+                walk_ms=cs.cuda_ms(lambda: be.exact_bank_stats(
+                    d, o, u, nb, th, cum=cum), reps=reps))
+        else:
+            k = be.ops.EXACT
+            fn = getattr(build.library(k.source), k.symbol)
+            fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
+            cum = torch.empty(S + 1, dtype=torch.float64, device="cuda")
+            out = torch.empty((1, 5), dtype=torch.float64, device="cuda")
+            ptrs = [build.ptr(t) for t in (o, d, u, nb, th, cum, out)]
+            stream = build.stream_ptr(d)
+            exact.update(scan_ms=cs.cuda_ms(
+                lambda: fn(*ptrs, S, 0, stream), reps=reps))
+        bound = dict(kernel="bank_energy", shape=tag,
+                     ms=cs.cuda_ms(lambda: be.bank_activity_stats(
+                         d, o, u, nb), reps=reps),
+                     device=cs.profiled_kernels(
+                         lambda: be.bank_activity_stats(d, o, u, nb)))
+        rows += [exact, bound]
+    return rows + [sweep_row(cs)]
+
+
+def sweep_row(cs) -> dict:
+    """The stage2 phase's pruned sweep at the serve trace's size: the one
+    `evaluate_candidates` call `sweep` makes, over capacities 16, 48 and 80
+    MiB x banks 1-16 under the conservative policy, on a synthetic trace of
+    24 segments."""
+    import numpy as np
+    import torch
+    from repro_torch.core.candidates import evaluate_candidates
+    from repro_torch.core.explorer import _policy_candidate
+    from repro_torch.core.gating import Policy
+    banks = (1, 2, 4, 8, 16)
+    cands = [_policy_candidate(c << 20, b, Policy.conservative())
+             for c in (16, 48, 80) for b in banks]
+    d, o = (np.asarray(x, np.float64) for x in cs.synthetic_trace(24, 1)[:2])
+
+    baselines = list(range(0, len(cands), len(banks)))
+
+    def call():
+        evaluate_candidates(d, o, cands, n_reads=10**6, n_writes=10**5,
+                            device="cuda", prune=True,
+                            always_evaluate=baselines)
+        torch.cuda.synchronize()
+    times = []
+    for i in range(55):
+        t0 = time.perf_counter()
+        call()
+        if i >= 5:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return dict(kernel="sweep", shape=f"S24 C{len(cands)}",
+                ms=statistics.median(times))
+
+
+def measure(tree: Path, only: str = "all") -> dict:
     """The timings of one tree, in this process (which must not have
     imported `repro_torch` yet)."""
     sys.path.insert(0, str(tree / "src"))
@@ -56,6 +161,9 @@ def measure(tree: Path) -> dict:
     import chip_smoke as cs
     import numpy as np
 
+    if only == "bank":
+        return dict(tree=str(tree), kind=torch.cuda.get_device_name(0),
+                    rows=bank_rows(cs))
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     cfg = get_arch(cs.ARCH)
     H, K, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -111,6 +219,7 @@ def measure(tree: Path) -> dict:
                          **cs.timed(lambda: int8_matmul(xq, wq, sx, sw),
                                     lambda: torch._int_mm(xq, wq).float()
                                     * sx * sw)))
+    rows += bank_rows(cs)
     return dict(tree=str(tree), kind=torch.cuda.get_device_name(0),
                 rows=rows)
 
@@ -120,9 +229,10 @@ def main() -> None:
     ap.add_argument("trees", nargs="+", type=Path)
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--only", choices=("all", "bank"), default="all")
     a = ap.parse_args()
     if a.one:
-        print(json.dumps(measure(a.trees[0].resolve())), flush=True)
+        print(json.dumps(measure(a.trees[0].resolve(), a.only)), flush=True)
         return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -130,9 +240,11 @@ def main() -> None:
         check=True).stdout.strip()
     lines = []
     for i, tree in enumerate(a.trees):
-        res = subprocess.run([sys.executable, __file__, "--one",
-                              str(tree.resolve())], capture_output=True,
-                             text=True, check=True)
+        res = subprocess.run([sys.executable, __file__, "--one", "--only",
+                              a.only, str(tree.resolve())],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            sys.exit(f"{tree}: exit {res.returncode}\n{res.stderr}")
         got = json.loads(res.stdout.strip().splitlines()[-1])
         got["turn"] = i
         lines.append(json.dumps(got))

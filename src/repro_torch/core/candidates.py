@@ -182,14 +182,27 @@ def evaluate_candidates(durations, occupancy, cands: Sequence[Candidate], *,
     exact energy (best-lower-bound candidate, evaluated exactly first) by
     more than `prune_margin` (relative) are skipped; their rows carry the
     lower bound and `evaluated=False`. `always_evaluate` lists indices
-    exempt from pruning (e.g. a sweep's delta baselines)."""
-    from repro_torch.kernels.bank_energy import exact_bank_stats
-    dev = require_device(device)
-    cands = list(cands)
+    exempt from pruning (e.g. a sweep's delta baselines). The trace's
+    running time is computed once and serves both exact calls."""
+    return _evaluate(durations, occupancy, list(cands), n_reads=n_reads,
+                     n_writes=n_writes, dev=require_device(device),
+                     prune=prune, prune_margin=prune_margin,
+                     always_evaluate=always_evaluate, cum=None)
+
+
+def _evaluate(durations, occupancy, cands: List[Candidate], *, n_reads: int,
+              n_writes: int, dev: torch.device, prune: bool,
+              prune_margin: float, always_evaluate: Optional[Sequence[int]],
+              cum: Optional[torch.Tensor]) -> CandidateEnergies:
+    """`evaluate_candidates` on `dev`; `cum` is the trace's running time
+    on `dev` once computed (None before)."""
+    from repro_torch.kernels.bank_energy import exact_bank_stats, running_time
     n = len(cands)
     d = np.asarray(durations, np.float64)
     occ = np.asarray(occupancy, np.float64)
     total_time = float(d.sum())
+    if cum is None and len(d) and any(c.policy != "none" for c in cands):
+        cum = running_time(_on(d, dev))
 
     p_leak, e_r, e_w, e_sw_j, break_even, area = _characteristics(cands)
     e_dyn = n_reads * e_r + n_writes * e_w
@@ -202,9 +215,10 @@ def evaluate_candidates(durations, occupancy, cands: Sequence[Candidate], *,
         lb = lower_bound_energies(d, occ, cands, n_reads=n_reads,
                                   n_writes=n_writes, device=dev)
         incumbent_i = int(np.argmin(lb))
-        inc = evaluate_candidates(d, occ, [cands[incumbent_i]],
-                                  n_reads=n_reads, n_writes=n_writes,
-                                  device=dev)
+        inc = _evaluate(d, occ, [cands[incumbent_i]], n_reads=n_reads,
+                        n_writes=n_writes, dev=dev, prune=False,
+                        prune_margin=prune_margin, always_evaluate=None,
+                        cum=cum)
         cutoff = float(inc.e_total[0]) * (1.0 + prune_margin)
         evaluated = lb <= cutoff
         evaluated[incumbent_i] = True
@@ -221,7 +235,7 @@ def evaluate_candidates(durations, occupancy, cands: Sequence[Candidate], *,
             * break_even[need]
         stats[need] = exact_bank_stats(
             _on(d, dev), _on(occ, dev), _on(usable, dev), _on(nb, dev),
-            _on(th, dev)).cpu().numpy()
+            _on(th, dev), cum=cum).cpu().numpy()
     pol = np.array([POLICIES.index(c.policy) for c in cands])
     is_none, is_gate, is_drowsy = pol == 0, pol == 1, pol == 2
 

@@ -22,6 +22,7 @@ from repro_torch.kernels.bank_energy import (bank_activity_stats,
                                              bank_energy_ref,
                                              exact_bank_stats,
                                              exact_bank_stats_ref)
+from repro_torch.kernels.bank_energy import running_time as scan
 from repro_torch.kernels.bank_energy.ref import running_time
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
@@ -562,3 +563,182 @@ def test_fp8_decode_of_every_code_on_card():
     want = fp8_table().cuda()
     assert torch.equal(got[0, 0].isnan(), want.isnan())
     assert torch.equal(got[0, 0].nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("S,C,bmax,sms", [
+    (1 << 20, 360, 32, 132),    # chip_smoke.py's synthetic sweep
+    (1 << 20, 1, 32, 132),      # the pruned sweep's incumbent call
+    (1 << 20, 360, 256, 132),   # summaries capped
+    (24, 15, 16, 132),          # the serve trace's sweep
+    (3000, 40, 256, 132), (513, 3, 8, 132), (1, 1, 1, 132)])
+def test_walk_plan_covers_the_trace(S, C, bmax, sms):
+    """The exact kernel's plan (host arithmetic, no card): a block's 8
+    warps are G candidates x W chunks, chunks are whole staged pieces, Q
+    of them cover the trace exactly once, and the summaries stay within
+    their cap."""
+    from repro_torch.kernels.bank_energy.ops import (WALK_STAGE,
+                                                     WALK_SUMMARY_MAX,
+                                                     walk_plan)
+    G, W, chunk, Q = walk_plan(S, C, bmax, sms)
+    assert G * W == 8 and G & (G - 1) == 0 and G <= C
+    assert chunk % (WALK_STAGE // W) == 0
+    assert (Q - 1) * chunk < S <= Q * chunk
+    assert Q == 1 or C * bmax * Q <= WALK_SUMMARY_MAX
+
+
+@pytest.mark.parametrize("S,C,sms", [(1 << 20, 360, 132), (1 << 20, 1, 132),
+                                     (24, 15, 132), (3000, 300, 132)])
+def test_energy_plan_covers_the_grid(S, C, sms):
+    from repro_torch.kernels.bank_energy.ops import (ENERGY_GROUP_MAX,
+                                                     energy_plan)
+    tile, group = energy_plan(S, C, sms)
+    assert tile % 256 == 0 and 256 <= tile <= 2048
+    assert group <= ENERGY_GROUP_MAX and -(-C // group) * group >= C
+
+
+def test_exact_bank_stats_takes_the_running_time():
+    d, o, u, nb, th = map(torch.from_numpy, _bank_case(8, 200, 6))
+    with_cum = exact_bank_stats(d, o, u, nb, th, cum=scan(d))
+    assert torch.equal(with_cum, exact_bank_stats(d, o, u, nb, th))
+    with pytest.raises(ValueError):
+        exact_bank_stats(d, o, u, nb, th, cum=scan(d)[:-1])
+
+
+def _wide_bank_case(seed, S, C, wide):
+    """`_bank_case` with some candidates at 1 bank and, when `wide`, some
+    at 256 banks whose usable size spreads the activity over all 256."""
+    rng = np.random.default_rng(seed + 100)
+    d, o, u, nb, th = _bank_case(seed, S, C)
+    nb[::5] = 1
+    if wide:
+        nb[1::3] = 256
+        u[1::3] = rng.uniform(2**27 / 300, 2**27 / 200, len(u[1::3]))
+    return d, o, u, nb, th
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 40, 360])
+@pytest.mark.parametrize("S", [1, 511, 512, 513, 3000, 1 << 20])
+def test_bank_kernels_at_chunk_edges_on_card(S, C):
+    """Kernels 3 and 4 against their plain versions across the walk's
+    chunk edges (chunks are at least 512 segments: S 511-513 give one or
+    two) and at a million segments, on a trace whose activity changes at
+    almost every segment, with bank counts from 1 to 256 (up to 32 at a
+    million segments, where the plain version's (C, B, S) temporaries
+    would be too slow): counts equal, seconds within rel 1e-12 (float64
+    sums in another order), two calls equal bit for bit, and a call that
+    runs its own scan equal to one given the running time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d, o, u, nb, th = (torch.from_numpy(x).cuda() for x in _wide_bank_case(
+        S % 97, S, C, wide=S <= 3000))
+    for fn, ref, args, counts in (
+            (exact_bank_stats, exact_bank_stats_ref, (d, o, u, nb, th),
+             [1, 3]),
+            (bank_activity_stats, bank_energy_ref, (d, o, u, nb), [1])):
+        got, want = fn(*args), ref(*args)
+        assert torch.equal(got, fn(*args))
+        assert torch.equal(got[:, counts], want[:, counts])
+        assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= 1e-12
+    assert torch.equal(exact_bank_stats(d, o, u, nb, th, cum=scan(d)),
+                       exact_bank_stats(d, o, u, nb, th))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 2, 511, 512, 513, 1024, 1 << 20,
+                               (1 << 20) + 3])
+def test_running_time_kernel_is_np_cumsum_on_card(S):
+    """The scan kernel gives np.r_[0, np.cumsum(d)] bit for bit (a first
+    duration of -0.0 included), from an aligned tensor and from a view 8
+    bytes off alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(S)
+    d = (np.where(rng.random(S) < 0.5, 1e-6, rng.random(S))
+         * rng.choice([1.0, 1e-3, 1e3], S))
+    d[rng.random(S) < 0.1] = 0.0
+    d[0] = -0.0
+    want = np.r_[0.0, np.cumsum(d)].view(np.int64)
+    for t in (torch.from_numpy(d).cuda(),
+              torch.from_numpy(np.r_[0.0, d]).cuda()[1:]):
+        got = scan(t).cpu().numpy()
+        np.testing.assert_array_equal(got.view(np.int64), want)
+
+
+@pytest.mark.gpu
+def test_bank_kernels_at_bank_edges_on_card():
+    """The kernels' division keeps a zero occupancy off CUDA's slow path by
+    taking +0 / u or -0 / u, divided once per candidate: activities at
+    occupancies of +-0, at exact multiples of the usable size and at their
+    nextafter neighbours equal the plain version's (counts equal, seconds
+    within rel 1e-12)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    u = np.array([0.9 * 2**27 / 5, 1000.0, 3.0, 2.0**-20, np.inf])
+    nb = np.array([5.0, 256.0, 7.0, 3.0, 2.0])
+    mult = np.concatenate([k * u[:3] for k in range(0, 8)])
+    occ = np.concatenate([[0.0, -0.0], mult, np.nextafter(mult, np.inf),
+                          np.nextafter(mult, 0.0), [2**27, 1.0]])
+    occ = np.repeat(occ, 3)
+    occ[::7] = -0.0
+    d = np.random.default_rng(3).random(len(occ)) * 1e-3
+    th = np.array([1e-3, 0.0, 5e-3, 1e-4, 2e-3])
+    d, o, u, nb, th = (torch.from_numpy(x).cuda() for x in (d, occ, u, nb,
+                                                            th))
+    for fn, ref, args, counts in (
+            (exact_bank_stats, exact_bank_stats_ref, (d, o, u, nb, th),
+             [1, 3]),
+            (bank_activity_stats, bank_energy_ref, (d, o, u, nb), [1])):
+        got, want = fn(*args), ref(*args)
+        assert torch.equal(got[:, counts], want[:, counts])
+        assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 40])
+def test_bank_kernels_on_empty_stretches_on_card(C):
+    """On a trace of stretches of zero occupancy and busy stretches, 1 to
+    5000 segments each (so whole walk pieces and lower-bound tiles are
+    empty, and some runs span many of them), both kernels equal their
+    plain versions (counts equal, seconds within rel 1e-12) and give the
+    same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(C)
+    lens = rng.integers(1, 5001, 40)
+    busy = np.arange(len(lens)) % 2 == 1
+    o = np.concatenate([rng.integers(1, 2**27, n).astype(np.float64) if b
+                        else np.zeros(n) for n, b in zip(lens, busy)])
+    S = len(o)
+    d = np.where(rng.random(S) < 0.5, 1e-6, rng.random(S))
+    _, _, u, nb, th = _wide_bank_case(5, 10, C, wide=True)
+    d, o, u, nb, th = (torch.from_numpy(x).cuda() for x in (d, o, u, nb,
+                                                            th))
+    for fn, ref, args, counts in (
+            (exact_bank_stats, exact_bank_stats_ref, (d, o, u, nb, th),
+             [1, 3]),
+            (bank_activity_stats, bank_energy_ref, (d, o, u, nb), [1])):
+        got, want = fn(*args), ref(*args)
+        assert torch.equal(got, fn(*args))
+        assert torch.equal(got[:, counts], want[:, counts])
+        assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [0.0, 257.0, 2.5, float("nan")])
+def test_bank_kernels_refuse_bad_bank_counts_on_card(bad):
+    """Both wrappers raise when a bank count is not an integer in
+    [1, 256], also where the kernel was queued before the counts were read
+    back, and the stream stays usable after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d, o, u, nb, th = (torch.from_numpy(x).cuda() for x in _bank_case(
+        4, 3000, 6))
+    nb[2] = bad
+    with pytest.raises(ValueError, match="bank counts"):
+        bank_activity_stats(d, o, u, nb)
+    with pytest.raises(ValueError, match="bank counts"):
+        exact_bank_stats(d, o, u, nb, th)
+    nb[2] = 4.0
+    assert torch.equal(exact_bank_stats(d, o, u, nb, th)[:, [1, 3]],
+                       exact_bank_stats_ref(d, o, u, nb, th)[:, [1, 3]])

@@ -113,3 +113,38 @@ def test_batched_gate_matches_the_scalar_reference():
         got = res.gating_result(i)
         assert got.n_transitions == ref.n_transitions
         assert abs(got.e_total / ref.e_total - 1.0) <= REL
+
+
+@pytest.mark.parametrize("policy", ["conservative", "aggressive"])
+def test_pruned_sweep_scans_the_trace_once(monkeypatch, policy):
+    """A pruned sweep computes the trace's running time once and hands it
+    to both exact calls (the incumbent's and the survivors'); its rows and
+    energies equal those of exact calls that compute their own."""
+    import repro_torch.kernels.bank_energy as be
+    scan, exact = be.running_time, be.exact_bank_stats
+    scans, cums = [], []
+
+    def counted_scan(d):
+        scans.append(len(d))
+        return scan(d)
+
+    def given_cum(*args, cum=None):
+        cums.append(cum)
+        return exact(*args, cum=cum)
+
+    _, tb = _bundles(3)
+    m = min_capacity_mib(tb.traces["kv"].peak_needed())
+    kw = dict(mem_name="kv", capacities_mib=[m, m + 32, m + 64],
+              banks=[1, 2, 4, 8, 16], prune=True, device="cpu",
+              policy=Policy.by_name(policy))
+    monkeypatch.setattr(be, "running_time", counted_scan)
+    monkeypatch.setattr(be, "exact_bank_stats", given_cum)
+    shared = sweep(tb, **kw)
+    assert len(scans) == 1 and len(cums) == 2
+    assert cums[0] is not None and cums[1] is cums[0]
+    monkeypatch.setattr(be, "exact_bank_stats",
+                        lambda *args, cum=None: exact(*args))
+    own = sweep(tb, **kw)
+    assert _rows(shared) == _rows(own) and len(own.rows) > 0
+    assert [r.result.e_total for r in shared.rows] == \
+        [r.result.e_total for r in own.rows]
