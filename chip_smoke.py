@@ -8,7 +8,11 @@ the int8 SwiGLU FFN of layer 0 through the int8 matmul; the same stream
 again with speculative decoding (k = 3, the skip-2 self-spec draft), whose
 target verifies each round through the paged verify kernel; and dense
 serving (`BatchedServer`, `ContinuousBatcher`) through the dense GQA decode
-kernel. It builds the
+kernel; and the paper's own flow: Stage I (the host simulator) of
+full-width dsr1d-qwen-1.5b (GQA) and gpt2-xl (MHA), prefill at M 2048 and
+a decode horizon of about a million trace segments, each trace swept on
+the card with pruning off and on and held to the same sweep on the CPU,
+then the `trapti` CLI once on the card. It builds the
 CUDA kernels from `src/repro_torch/csrc/` first, holds every kernel against
 its plain PyTorch version at its path's shapes, and checks that each path
 launched its kernels (launch counts are set to 0 just before a path and
@@ -26,6 +30,7 @@ the pruned sweep's single incumbent), where the exact kernel's scan and
 walk are timed apart beside the serial floor (a small kernel adding the
 trace's length of f64 numbers in one thread) and its running time is held
 to np.cumsum bit for bit; both bank kernels give the same bits twice.
+The bank kernels are also timed at each decode horizon's own shape.
 Each phase prints one JSON line; the last three lines
 are the kernel summary, the card's `nvidia-smi` name and power limit, then
 
@@ -39,6 +44,7 @@ Run from the root of the repository:  python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -98,6 +104,14 @@ SPEC_K, SPEC_SKIP = 3, 2
 # requests (the serve's first prompts) and cache length
 DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 8, 128, 32
 DENSE_REQUESTS, DENSE_MAX_LEN = 4, 640
+# Stage I: the paper's two workloads (full width, all layers) on the
+# baseline accelerator's 128 MiB SRAM, prefill at M 2048 and the decode
+# horizon through PSS; each trace swept over its minimum capacity and the
+# next two 16 MiB steps, the CLI's default banks (`explorer.DEFAULT_BANKS`),
+# the conservative policy
+STAGE1_ARCHS = ("dsr1d-qwen-1.5b", "gpt2-xl")
+STAGE1_SRAM_MIB, STAGE1_M = 128, 2048
+STAGE1_HORIZON = dict(start_ctx=2048, steps=1024, batch=16, fidelity="pss")
 
 
 def emit(phase: str, **fields) -> None:
@@ -858,6 +872,153 @@ def serve_dense(model, params, prompts) -> dict:
         launches=server_launches + batcher_launches)
 
 
+# -------------------------------------------------------------- stage one
+def stage1_sweep(sim, capacities, prune: bool) -> dict:
+    """One Stage-II sweep of a Stage-I result's SRAM trace on the card,
+    launch counts set to 0 just before and read just after, held to the
+    same sweep's plain float64 version on the CPU: the same (C, B) rows,
+    transition counts equal, e_total within rel 1e-12. Every sweep runs the
+    exact kernel after one scan of the trace; a pruned one also the lower
+    bound (kernel 4), an exact one never."""
+    from repro_torch.core.explorer import sweep
+    from repro_torch.kernels import build
+    kw = dict(capacities_mib=capacities, prune=prune)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = sweep(sim, device="cuda", **kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = build.launch_counts()
+    t0 = time.perf_counter()
+    plain = sweep(sim, device="cpu", **kw)
+    plain_s = time.perf_counter() - t0
+    tag = f"stage1 {sim.graph_name} prune={prune}"
+    check(len(table.rows) > 0, f"{tag}: sweep table is non-empty")
+    check([(r.capacity_mib, r.banks) for r in table.rows]
+          == [(r.capacity_mib, r.banks) for r in plain.rows],
+          f"{tag}: rows equal the plain-version sweep")
+    check(all(a.result.n_transitions == b.result.n_transitions
+              for a, b in zip(table.rows, plain.rows)),
+          f"{tag}: transition counts equal")
+    rel = max(abs(a.result.e_total / b.result.e_total - 1.0)
+              for a, b in zip(table.rows, plain.rows))
+    check(rel <= 1e-12, f"{tag}: e_total rel err {rel}")
+    launched = {k: counts[k] for k in ("running_time", "exact_bank_stats",
+                                       "bank_energy")}
+    check(launched["running_time"] == 1,
+          f"{tag}: the sweep ran the scan once ({launched['running_time']})")
+    check(launched["exact_bank_stats"] >= 1, f"{tag}: launched kernel 3")
+    check((launched["bank_energy"] >= 1) == prune,
+          f"{tag}: kernel 4 launched {launched['bank_energy']} times")
+    best = table.best()
+    return dict(prune=prune, rows=len(table.rows), e_total_rel_err=rel,
+                sweep_s=card_s, plain_cpu_s=plain_s, launches=launched,
+                best={"capacity_mib": best.capacity_mib, "banks": best.banks,
+                      "e_total_j": best.result.e_total})
+
+
+def stage1_phase():
+    """The paper's two-stage flow at full width: for each paper model,
+    Stage I on the host (prefill at M 2048 by `simulate`, the decode
+    horizon by `simulate_decode`), each SRAM trace swept on the card with
+    pruning off and on (`stage1_sweep`), the bank kernels timed at the
+    decode horizon's shape against their plain versions (`bank_case`),
+    then `python -m repro_torch.launch.trapti` once on the card. Returns
+    (the phase's fields, kernel 3's and 4's launches per sweep, their rows
+    at each decode horizon's shape)."""
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.core.cacti import characterize
+    from repro_torch.core.candidates import Candidate
+    from repro_torch.core.explorer import DEFAULT_BANKS, MIB, min_capacity_mib
+    from repro_torch.core.workload import build_graph
+    from repro_torch.sim.accelerator import baseline_accelerator
+    from repro_torch.sim.engine import simulate
+    from repro_torch.sim.pss import simulate_decode
+    accel = baseline_accelerator(STAGE1_SRAM_MIB)
+    out, launches, horizon = {}, {}, {}
+    for name in STAGE1_ARCHS:
+        cfg = get_arch(name)
+        t0 = time.perf_counter()
+        prefill = simulate(build_graph(cfg, M=STAGE1_M, subops=4), accel)
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decode = simulate_decode(cfg, accel, **STAGE1_HORIZON)
+        decode_s = time.perf_counter() - t0
+        check(decode.fidelity == "pss", f"{name}: the horizon ran PSS")
+        out[name], launches[name] = {}, {}
+        for phase, sim, host_s in (("prefill", prefill, prefill_s),
+                                   ("decode", decode, decode_s)):
+            trace = sim.traces["sram"]
+            dur, occ = trace.occupancy_series(sim.total_time, use="needed")
+            check(len(dur) > 0 and bool(np.isfinite(dur).all())
+                  and bool((dur > 0).all()) and bool((occ >= 0).all()),
+                  f"{name} {phase}: finite positive segments")
+            peak = trace.peak_needed()
+            m = min_capacity_mib(peak)
+            caps = [m, m + 16, m + 32]
+            sweeps = {key: stage1_sweep(sim, caps, prune)
+                      for key, prune in (("prune_off", False),
+                                         ("prune_on", True))}
+            launches[name][phase] = {key: s["launches"]
+                                     for key, s in sweeps.items()}
+            out[name][phase] = dict(
+                graph=sim.graph_name, segments=len(dur),
+                peak_needed_bytes=peak,
+                zero_occupancy_share=float((occ == 0).mean()),
+                stage1_host_s=host_s, total_time_s=sim.total_time,
+                writebacks=sim.writebacks, capacities_mib=caps, **sweeps)
+        # the bank kernels at the decode horizon's shape: the sweep's 18
+        # (C, B) candidates, gated (alpha 0.9, 5x break-even)
+        dur, occ = decode.traces["sram"].occupancy_series(decode.total_time,
+                                                          use="needed")
+        caps = out[name]["decode"]["capacities_mib"]
+        cands = [Candidate(c * MIB, b, 0.9, "gate", 5.0)
+                 for c in caps for b in DEFAULT_BANKS]
+        th = [c.min_gate_multiple * characterize(c.capacity,
+                                                 c.banks).break_even_s
+              for c in cands]
+        rows = bank_case(dur, occ, [c.usable_bytes for c in cands],
+                         [float(c.banks) for c in cands], th, at_scale=True)
+        for kernel, row in rows.items():
+            horizon.setdefault(kernel, {})[name] = row
+    peak = {ph: {n: out[n][ph]["peak_needed_bytes"] for n in STAGE1_ARCHS}
+            for ph in ("prefill", "decode")}
+    # the trapti CLI on the card (dsr1d prefill: find_min_sram, one sweep)
+    with tempfile.TemporaryDirectory() as tmp:
+        report = Path(tmp) / "trapti.json"
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.trapti", "--arch",
+             "dsr1d-qwen-1.5b", "--json", str(report)],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=600,
+            env={**os.environ,
+                 "PYTHONPATH": str(Path(__file__).resolve().parent / "src")})
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0,
+              f"trapti CLI exit {cli.returncode}: {cli.stderr[-2000:]}")
+        payload = json.loads(report.read_text())
+    check(payload["memories"].get("sram", {}).get("best_banks", 0) >= 1,
+          "trapti CLI reported a best (C, B) for the SRAM")
+    fields = dict(
+        accelerator=accel.name, sram_mib=STAGE1_SRAM_MIB, prefill_M=STAGE1_M,
+        horizon=STAGE1_HORIZON, banks=list(DEFAULT_BANKS),
+        policy="conservative", models=out,
+        # printed, not gated: MHA's peak over GQA's
+        mha_over_gqa_peak_needed={
+            ph: v["gpt2-xl"] / v["dsr1d-qwen-1.5b"] for ph, v in peak.items()},
+        decode_horizon_kernels=horizon,
+        trapti_cli=dict(argv="--arch dsr1d-qwen-1.5b --json", exit=0,
+                        wall_s=cli_s, report=payload))
+    per_kernel = {k: {n: {ph: {key: v[k] for key, v in s.items()}
+                          for ph, s in launches[n].items()}
+                      for n in STAGE1_ARCHS}
+                  for k in ("exact_bank_stats", "bank_energy")}
+    return fields, per_kernel, horizon
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1157,6 +1318,10 @@ def main() -> None:
     launches["gqa_decode"] = dense.pop("launches")
     emit("serve_dense", arch=cfg.name, dtype="bfloat16", **dense)
 
+    # ---- stage1: the paper's flow, Stage I on the host, Stage II here ----
+    stage1, stage1_launches, horizon_rows = stage1_phase()
+    emit("stage1", **stage1)
+
     kernels = []
     for name, row in (("paged_gqa_decode", rows["paged_gqa_decode"][0]),
                       ("flash_attention", rows["flash_attention"][0]),
@@ -1165,9 +1330,16 @@ def main() -> None:
                       ("int8_matmul", rows["int8_matmul"][0]),
                       ("exact_bank_stats",
                        dict(bank_main["exact_bank_stats"], dtype="float64",
-                            scan_launches=launches["running_time"])),
+                            scan_launches=launches["running_time"],
+                            stage1_launches=stage1_launches[
+                                "exact_bank_stats"],
+                            stage1_decode_horizon=horizon_rows[
+                                "exact_bank_stats"])),
                       ("bank_energy",
-                       dict(bank_main["bank_energy"], dtype="float64")),
+                       dict(bank_main["bank_energy"], dtype="float64",
+                            stage1_launches=stage1_launches["bank_energy"],
+                            stage1_decode_horizon=horizon_rows[
+                                "bank_energy"])),
                       ("paged_gqa_verify", rows["paged_gqa_verify"][0]),
                       ("gqa_decode", rows["gqa_decode"][0])):
         # rows[...][0] is the main path's dtype (bfloat16)
@@ -1180,7 +1352,9 @@ def main() -> None:
             shape=row["shape"], dtype=row["dtype"],
             **{key: row[key] for key in ("variant", "device_ms",
                                          "library_device_ms",
-                                         "scan_launches") if key in row}))
+                                         "scan_launches", "stage1_launches",
+                                         "stage1_decode_horizon")
+               if key in row}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

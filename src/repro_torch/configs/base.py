@@ -1,7 +1,9 @@
-"""Config system of the PyTorch port: `ArchConfig`, the registry and
-`reduced`, copied from the reference package's `repro/configs/base.py` so
-that the port imports nothing of it. Only the paper's two workloads are
-registered here (`repro_torch.configs`).
+"""Config system of the PyTorch port: one ArchConfig per supported
+architecture + the shape registry, copied from the reference package's
+`repro/configs/base.py` so that the port imports nothing of it.
+
+The Stage-I workload graphs (`core.workload`) lower every registered config;
+the port's models serve the full-attention ones.
 """
 from __future__ import annotations
 
@@ -227,6 +229,38 @@ class ArchConfig:
 
 
 # ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+# Archs allowed to run long_500k (sub-quadratic or bounded-KV attention).
+LONG_CONTEXT_OK = frozenset({
+    "mamba2-130m", "recurrentgemma-2b", "llama4-scout-17b-a16e",
+})
+
+
+def shape_supported(arch: "ArchConfig", shape: ShapeConfig) -> tuple:
+    """(supported, reason) — encodes the assignment's skip rules."""
+    if shape.name == "long_500k" and arch.name not in LONG_CONTEXT_OK:
+        return False, "pure full-attention arch: 500k-token KV skip per assignment"
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -245,6 +279,22 @@ def get_arch(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def resolve_arch(name: str) -> ArchConfig:
+    """`get_arch` that also accepts module-style spellings: separators and
+    case are ignored, so "dsr1d_qwen_1_5b" == "dsr1d-qwen-1.5b"."""
+    from repro_torch import configs as _c  # noqa: F401
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+
+    def canon(s: str) -> str:
+        return "".join(ch for ch in s.lower() if ch.isalnum())
+
+    matches = [k for k in _REGISTRY if canon(k) == canon(name)]
+    if len(matches) != 1:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[matches[0]]
 
 
 def list_archs() -> list:

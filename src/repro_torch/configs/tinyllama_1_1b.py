@@ -1,0 +1,18 @@
+"""TinyLlama-1.1B — llama2-style small dense GQA. [arXiv:2401.02385; hf]"""
+from repro_torch.configs.base import ArchConfig, register
+
+TINYLLAMA_1_1B = register(ArchConfig(
+    name="tinyllama-1.1b",
+    family="dense",
+    num_layers=22,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=4,
+    head_dim=64,
+    d_ff=5632,
+    vocab_size=32000,
+    ffn_kind="swiglu",
+    norm="rmsnorm",
+    pos_emb="rope",
+    source="arXiv:2401.02385; hf",
+))

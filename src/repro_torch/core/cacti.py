@@ -38,14 +38,6 @@ E_SW_NJ_PER_KIB = 0.4           # power-gate transition (off+on pair)
 WAKEUP_LATENCY_NS = 1000.0
 
 
-def sram_latency_ns(capacity: int) -> float:
-    """CACTI-flavoured access latency vs capacity (paper: 32 ns @128 MiB,
-    22 ns @64 MiB). Fit: latency ~ a * sqrt(C) + b. Copied from the
-    reference's `sim/accelerator.py`, which the port does not carry."""
-    mib = capacity / 2**20
-    return 2.75 * math.sqrt(mib) + 0.9
-
-
 @dataclass(frozen=True)
 class SramCharacterization:
     capacity: int                # bytes, total
@@ -112,6 +104,7 @@ class SramCharacterization:
 
     @property
     def access_latency_ns(self) -> float:
+        from repro_torch.sim.accelerator import sram_latency_ns
         return sram_latency_ns(self.bank_bytes) + 0.3 * math.log2(
             max(self.banks, 1))
 

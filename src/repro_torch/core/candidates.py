@@ -5,7 +5,8 @@ One vectorized call computes the **exact** Eq. (2)-(5) energy for a full
 (capacity C x banks B x headroom alpha x policy) candidate grid against one
 occupancy trace — including threshold gating and the three-state drowsy
 policy — replacing the per-candidate / per-bank Python loops in
-the scalar reference `core.gating.evaluate`.
+the scalar references `core.gating.evaluate` and
+`core.sensitivity.evaluate_drowsy`.
 
 The heavy lifting is idle-run extraction in `kernels.bank_energy`: the
 CUDA kernels on the card, their plain float64 PyTorch versions on the
@@ -27,7 +28,7 @@ import torch
 from repro_torch.core.cacti import characterize
 from repro_torch.core.gating import GatingResult
 from repro_torch.core.sensitivity import (DROWSY_LEAK_FRACTION,
-                                          DROWSY_SWITCH_FRACTION)
+                                          DROWSY_SWITCH_FRACTION, DrowsyResult)
 from repro_torch.device import require_device
 
 POLICIES = ("none", "gate", "drowsy")
@@ -132,6 +133,14 @@ class CandidateEnergies:
             gated_bank_seconds=float(self.gated_bank_seconds[i]),
             total_bank_seconds=float(self.total_bank_seconds[i]),
             area_mm2=float(self.area_mm2[i]))
+
+    def drowsy_result(self, i: int) -> DrowsyResult:
+        self._require_evaluated(i)
+        return DrowsyResult(
+            e_dyn=float(self.e_dyn[i]), e_leak_on=float(self.e_leak_on[i]),
+            e_leak_drowsy=float(self.e_leak_drowsy[i]),
+            e_sw=float(self.e_sw[i]), n_off=int(self.n_off[i]),
+            n_drowsy=int(self.n_drowsy[i]))
 
 
 def _characteristics(cands: Sequence[Candidate]):

@@ -10,21 +10,27 @@ Sweeps are thin wrappers over the batched candidate-evaluation engine
 (`core.candidates.evaluate_candidates`): the whole grid is evaluated in one
 call, optionally prune-then-exact (`prune=True`), on `device` (the CUDA
 bank-energy kernels on the card, their plain versions on the CPU). The
-Stage-I simulator's `SimResult` is not ported yet; a `TraceBundle` (the
-paged batcher's `occupancy_bundle()`) is the input.
+input is a Stage-I `SimResult` (the simulator's, `occupancy_kind="needed"`,
+`mem_name="sram"`) or a `TraceBundle` (the paged batcher's
+`occupancy_bundle()`, `mem_name="kv"`).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 from repro_torch.core.candidates import Candidate, evaluate_candidates
 from repro_torch.core.gating import GatingResult, Policy
+from repro_torch.sim.engine import SimResult
 from repro_torch.sim.trace import TraceBundle
 
 MIB = 2**20
 DEFAULT_BANKS = (1, 2, 4, 8, 16, 32)
+
+# Anything exposing .graph_name / .total_time / .traces / .access satisfies
+# Stage II's input contract: the Stage-I SimResult, or a TraceBundle.
+TraceSource = Union[SimResult, TraceBundle]
 
 
 @dataclass
@@ -75,15 +81,15 @@ def _policy_candidate(cap: int, b: int, policy: Policy) -> Candidate:
                      pol.min_gate_multiple, label=pol.name)
 
 
-def sweep(sim: TraceBundle, *, mem_name: str = "sram",
+def sweep(sim: TraceSource, *, mem_name: str = "sram",
           capacities_mib: Optional[Sequence[int]] = None,
           banks: Sequence[int] = DEFAULT_BANKS,
           policy: Optional[Policy] = None,
           max_capacity_mib: int = 128,
           occupancy_kind: str = "needed",
           device="cuda", prune: bool = False) -> SweepTable:
-    """Sweep (C, B) for one memory of a Stage-I trace bundle (e.g. the paged
-    batcher's, with mem_name="kv").
+    """Sweep (C, B) for one memory of one Stage-I run (or a trace bundle —
+    e.g. the paged batcher's, with mem_name="kv").
 
     `occupancy_kind="needed"`: only retention-required bytes pin banks —
     obsolete data needs no retention, so its banks are gate-eligible (this is
@@ -135,3 +141,30 @@ def sweep(sim: TraceBundle, *, mem_name: str = "sram",
             row.delta_a_pct = 100.0 * (g.area_mm2 / base.area_mm2 - 1.0)
         table.rows.append(row)
     return table
+
+
+def pareto_points(tables: Sequence[SweepTable]):
+    """Fig.-9 scatter: (area, energy, label) for every (C,B) candidate."""
+    pts = []
+    for t in tables:
+        for r in t.rows:
+            pts.append((r.result.area_mm2, r.result.e_total, t.workload,
+                        r.capacity_mib, r.banks))
+    return pts
+
+
+def alpha_sensitivity(sim: TraceSource, *, capacity_mib: int, banks: int,
+                      alphas: Sequence[float] = (1.0, 0.9, 0.75, 0.5),
+                      mem_name: str = "sram",
+                      device="cuda") -> Dict[float, GatingResult]:
+    """Fig.-8 support: how alpha moves bank activity / energy at fixed (C,B).
+    One batched call over the alpha axis, on `device`."""
+    trace = sim.traces[mem_name]
+    dur, occ = trace.occupancy_series(sim.total_time, use="needed")
+    n_r = sim.access.n_reads(mem_name)
+    n_w = sim.access.n_writes(mem_name)
+    cands = [Candidate(capacity_mib * MIB, banks, a, "gate", 5.0,
+                       label="conservative") for a in alphas]
+    res = evaluate_candidates(dur, occ, cands, n_reads=n_r, n_writes=n_w,
+                              device=device)
+    return {a: res.gating_result(i) for i, a in enumerate(alphas)}

@@ -263,8 +263,9 @@ class AccessStats:
 class TraceBundle:
     """The minimal Stage-I artifact contract consumed by Stage II.
 
-    The port's paged batcher emits it (`serve.paged.PagedContinuousBatcher.
-    occupancy_bundle`), and `core.explorer.sweep` consumes it."""
+    `sim.engine.SimResult` satisfies it structurally; the port's paged
+    batcher emits it (`serve.paged.PagedContinuousBatcher.occupancy_bundle`),
+    and `core.explorer.sweep` consumes either."""
     graph_name: str
     total_time: float
     traces: Dict[str, "OccupancyTrace"]
@@ -272,3 +273,18 @@ class TraceBundle:
 
     def peak_needed(self, mem: str = "kv") -> int:
         return self.traces[mem].peak_needed()
+
+
+@dataclass
+class OpStats:
+    """Per-tag latency decomposition (paper Fig. 6)."""
+    compute: Dict[str, float] = field(default_factory=dict)
+    memory: Dict[str, float] = field(default_factory=dict)
+    idle: Dict[str, float] = field(default_factory=dict)
+    count: Dict[str, int] = field(default_factory=dict)
+
+    def add(self, tag: str, compute: float, memory: float, idle: float):
+        self.compute[tag] = self.compute.get(tag, 0.0) + compute
+        self.memory[tag] = self.memory.get(tag, 0.0) + memory
+        self.idle[tag] = self.idle.get(tag, 0.0) + idle
+        self.count[tag] = self.count.get(tag, 0) + 1

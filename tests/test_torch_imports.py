@@ -1,7 +1,7 @@
 """The port stands alone: no module of `repro_torch`, and not
 `chip_smoke.py`, imports JAX or the JAX package `repro`, and the package
-imports and runs a CPU prefill + paged decode step with JAX made
-unimportable."""
+imports and runs a CPU prefill + paged decode step, and a Stage-I decode
+horizon swept in Stage II, with JAX made unimportable."""
 import ast
 import os
 import subprocess
@@ -60,6 +60,13 @@ tok[0, 0] = int(logits[0, -1].argmax())
 out, cache = m.decode_step_paged(p, cache, tok)
 assert out.shape == (2, 1, cfg.padded_vocab) and bool(torch.isfinite(out).all())
 assert cache["pos"].tolist() == [12, 0]
+import repro_torch.launch.trapti, repro_torch.examples.quickstart
+from repro_torch.core.explorer import sweep
+from repro_torch.sim.accelerator import baseline_accelerator
+from repro_torch.sim.pss import simulate_decode
+sim = simulate_decode(cfg, baseline_accelerator(8), start_ctx=16, steps=8,
+                      batch=2, subops=2, fidelity="pss")
+assert sweep(sim, capacities_mib=[1], banks=(1, 4), device="cpu").rows
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print("ok")
