@@ -12,7 +12,13 @@ kernel; and the paper's own flow: Stage I (the host simulator) of
 full-width dsr1d-qwen-1.5b (GQA) and gpt2-xl (MHA), prefill at M 2048 and
 a decode horizon of about a million trace segments, each trace swept on
 the card with pruning off and on and held to the same sweep on the CPU,
-then the `trapti` CLI once on the card. It builds the
+then the `trapti` CLI once on the card; and prefix-cached serving of
+shared-prefix traffic (`chat_sysprompt`) with chunked suffix prefills and
+priority-1 arrivals that preempt, in a pool small enough to evict cached
+prefixes, whose physical ("kv") and logical ("kv_logical") traces are
+both swept (`serve_prefix`), after the same mechanisms on a 2-layer model
+held to the CPU plain path on native, int8 and fp8 pages and with
+speculation (`reference_prefix`). It builds the
 CUDA kernels from `src/repro_torch/csrc/` first, holds every kernel against
 its plain PyTorch version at its path's shapes, and checks that each path
 launched its kernels (launch counts are set to 0 just before a path and
@@ -22,17 +28,25 @@ decode kernels (dense, paged on float, fp8 and int8 pools, and verify) to
 their split mirrors and to equal rows at batch 1 and 8, each verify row to
 the paged decode kernel at its length bit for bit, and the fp8 decode to
 the 256-entry table; the int8 matmul's int32 accumulators are held
-exactly and its output bit for bit. Prefill, dense decode, paged decode,
-verify and the int8 matmul also get device times from a CUDA graph,
-beside one library call's where there is one (SDPA, `torch._int_mm`).
+exactly and its output bit for bit. The prefill kernel also runs with a
+query offset (the suffix rows of a shared prefill, offsets 0, 16, 21 and
+384 x 1, 37 and 256 rows, bf16 and float32), held to its plain version and
+mirror with the offset and to the offset-0 call's rows bit for bit, and
+timed beside SDPA with the offset-causal mask. Prefill, dense decode,
+paged decode, verify and the int8 matmul also get device times from a CUDA
+graph, beside one library call's where there is one (SDPA,
+`torch._int_mm`).
 The bank kernels are also run at a million segments (360 candidates, and
 the pruned sweep's single incumbent), where the exact kernel's scan and
 walk are timed apart beside the serial floor (a small kernel adding the
 trace's length of f64 numbers in one thread) and its running time is held
 to np.cumsum bit for bit; both bank kernels give the same bits twice.
 The bank kernels are also timed at each decode horizon's own shape.
-Each phase prints one JSON line; the last three lines
-are the kernel summary, the card's `nvidia-smi` name and power limit, then
+Each phase prints one JSON line (device, kernels, reference,
+reference_prefix, serve, stage2, bank_kernels, serve_quant, stage2_quant,
+int8_ffn, serve_spec, serve_dense, serve_prefix, stage1); the last three
+lines are the kernel summary, the card's `nvidia-smi` name and power
+limit, then
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -112,6 +126,18 @@ DENSE_REQUESTS, DENSE_MAX_LEN = 4, 640
 STAGE1_ARCHS = ("dsr1d-qwen-1.5b", "gpt2-xl")
 STAGE1_SRAM_MIB, STAGE1_M = 128, 2048
 STAGE1_HORIZON = dict(start_ctx=2048, steps=1024, batch=16, fidelity="pss")
+# the prefill kernel with a query offset (the suffix rows of a shared or
+# chunked prefill): cached rows m (page-aligned 16, mid-page 21) x suffix rows
+FLASH_OFFSETS, FLASH_SUFFIXES = (0, 16, 21, 384), (1, 37, 256)
+# shared-prefix serving: chat_sysprompt traffic (the reference example's
+# family; prefix ~384 tokens, ~4 requests a tenant), suffix prefills in
+# 256-token slices; after two chunks 4 priority-1 requests with 512-token
+# prompts arrive. The pool holds 15 pages a slot (a quarter of the longest
+# request's worst case), so cached prefixes are evicted and the priority
+# requests preempt
+PREFIX_REQUESTS, PREFIX_CHUNK = 16, 256
+PREFIX_POOL_PAGES = SLOTS * 15 + 1
+URGENT, URGENT_LEN = 4, 512
 
 
 def emit(phase: str, **fields) -> None:
@@ -335,6 +361,11 @@ def kernel_phase(gen) -> dict:
         rows.setdefault("flash_attention", []).append(
             flash_row(gen, tag, c, S, S_min, dtype))
 
+    rows["flash_attention_offset"] = [
+        flash_offset_row(gen, cfg, dtype, m, S)
+        for dtype in (torch.bfloat16, torch.float32)
+        for m in FLASH_OFFSETS for S in FLASH_SUFFIXES]
+
     rows["int8_matmul"] = [int8_mm_row(gen, int(lengths.max()), k, n)
                            for k, n in FFN_SHAPES]
 
@@ -433,6 +464,69 @@ def flash_row(gen, tag, c, S, S_min, dtype) -> dict:
                                                       is_causal=True)),
                 plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v),
                                  reps=5),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def flash_offset_row(gen, c, dtype, m, S) -> dict:
+    """The prefill kernel with `q_offset = m` over m + S keys, the suffix
+    rows of a shared prefill: against the float32 plain version with the
+    offset (the row's tolerance), a bf16 query also against the tensor-core
+    mirror with the offset (within one bf16 step at the output's largest
+    magnitude, each element within one step plus MIRROR_ATOL), and every
+    row against row m + s of the offset-0 call over the same keys (0.0).
+    The library yardstick is one SDPA call with the boolean offset-causal
+    mask and the KV heads shared by the group."""
+    from repro_torch.kernels.flash_attention import (
+        MIRROR_ATOL, bf16_excess, bf16_step, flash_attention,
+        flash_attention_bf16_mirror_ref, flash_attention_ref, variant)
+    H, K, d = c.num_heads, c.num_kv_heads, c.head_dim
+    T = m + S
+    q_all = torch.randn((1, T, H, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((1, T, K, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((1, T, K, d), generator=gen, device="cuda").to(dtype)
+    q = q_all[:, m:]
+    out = flash_attention(q, k, v, q_offset=m)
+    whole = flash_attention(q_all, k, v)
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), m)
+    torch.cuda.synchronize()
+    tag = f"flash offset m={m} S={S} {dtype}"
+    err, diff0 = max_err(out, ref), max_err(out, whole[:, m:])
+    check(bool(torch.isfinite(out.float()).all()), f"{tag}: finite")
+    check(err <= TOL[dtype], f"{tag}: {err}")
+    check(diff0 == 0.0, f"{tag}: rows differ from the offset-0 call's rows "
+          f"{m}.. by {diff0}")
+    extra = {}
+    if dtype == torch.bfloat16:
+        mirror = flash_attention_bf16_mirror_ref(q, k, v, m)
+        extra = dict(max_abs_err_mirror=max_err(out, mirror),
+                     mirror_step=float(bf16_step(mirror).max()),
+                     mirror_excess=bf16_excess(out, mirror))
+        check(extra["max_abs_err_mirror"] <= extra["mirror_step"],
+              f"{tag} vs its bf16 mirror: {extra['max_abs_err_mirror']}")
+        check(extra["mirror_excess"] <= MIRROR_ATOL,
+              f"{tag} vs its bf16 mirror: an element strays "
+              f"{extra['mirror_excess']} beyond one bf16 step")
+    isz = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz
+    flops = 4.0 * H * d * (S * m + S * (S + 1) / 2)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    mask = (torch.arange(S, device="cuda")[:, None] + m
+            >= torch.arange(T, device="cuda")[None, :])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def fn():
+        return flash_attention(q, k, v, q_offset=m)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    return dict(shape=f"B1 m{m} S{S} H{H} K{K} d{d}", q_offset=m,
+                dtype=str(dtype), variant=variant(q), max_abs_err=err,
+                tolerance=TOL[dtype], offset0_rows_max_abs_diff=diff0,
+                **extra, offset_ms=cuda_ms(fn), offset_device_ms=graph_ms(fn),
+                library_offset_ms=cuda_ms(lib),
+                library_offset_device_ms=graph_ms(lib),
                 bound_ms=b_ms, bound_by=b_by)
 
 
@@ -872,6 +966,261 @@ def serve_dense(model, params, prompts) -> dict:
         launches=server_launches + batcher_launches)
 
 
+# ------------------------------------------- prefix, chunked and priority
+def prefix_serve(model, params, prompts, urgent, new_tokens: int, **kw):
+    """Serve `prompts` (greedy, `new_tokens` each) through one paged batcher
+    built with `kw`; after two chunks the `urgent` prompts arrive at
+    priority 1, then the batcher drains. Returns (batcher, finished
+    requests sorted by rid)."""
+    from repro_torch.serve import PagedContinuousBatcher, Request
+    cb = PagedContinuousBatcher(model, params, **kw)
+    for i, p in enumerate(prompts):
+        cb.submit(Request(rid=i, tokens=p, max_new_tokens=new_tokens))
+    done = cb.run(max_chunks=2)
+    for j, p in enumerate(urgent):
+        cb.submit(Request(rid=len(prompts) + j, tokens=p,
+                          max_new_tokens=new_tokens, priority=1))
+    done += cb.run()
+    return cb, sorted(done, key=lambda r: r.rid)
+
+
+def chat_prompts(vocab: int, n: int, lengths, prefix_len: int):
+    """The first `n` requests of the seeded `chat_sysprompt` workload (4
+    requests a tenant, rate 4/s over 8 s), materialized into tokens."""
+    from repro_torch.traffic import generate_workload, materialize_tokens
+    specs = generate_workload("chat_sysprompt", rate=4.0, horizon_s=8.0,
+                              seed=SEED, lengths=lengths,
+                              prefix_len=prefix_len, sharing=4)[:n]
+    return materialize_tokens(specs, vocab, seed=SEED)
+
+
+def mechanisms(st) -> dict:
+    """The prefix, chunking and preemption counters of a `PagedStats`."""
+    return dict(prefix_hits=st.prefix_hits,
+                prefix_tokens_reused=st.prefix_tokens_reused,
+                cow_splits=st.cow_splits, evicted_pages=st.evicted_pages,
+                prefill_slices=st.prefill_slices, preemptions=st.preemptions)
+
+
+def reference_prefix() -> dict:
+    """The reduced dsr1d model with 2 layers, float32, on the card and on
+    the CPU plain path: shared-prefix traffic served with the prefix cache,
+    16-token prefill slices (the longest suffix is longer), two priority-1
+    requests after two chunks, and a pool of 33 pages, so that every
+    mechanism fires (hits, COW splits, evictions, slices, preemptions), on
+    native, int8 and fp8 pages and speculatively (k 2, native pages). Greedy
+    tokens, per-request preemptions, every `PagedStats` counter, the events
+    of "kv" and "kv_logical" and both traces' (C, B) sweep rows must be
+    equal."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.explorer import sweep
+    from repro_torch.models import DecoderLM
+    from repro_torch.params import init_params
+    from repro_torch.traffic import LengthModel
+    small = reduced(get_arch(ARCH), layers=2)
+    cpu_params = init_params(small, torch.Generator().manual_seed(SEED + 6),
+                             device="cpu")
+    prompts = chat_prompts(small.vocab_size, 8, LengthModel(
+        prompt_mean=16, prompt_sigma=0.4, output_mean=8, max_len=96), 40)
+    urgent = list(np.random.default_rng(SEED + 5).integers(
+        0, small.vocab_size, (2, 48)))
+    geometry = dict(num_slots=2, page_size=8, num_pages=34,
+                    max_pages_per_slot=16, chunk_steps=4,
+                    prefill_chunk_tokens=16, prefix_cache=True)
+    cases = {"native": dict(kv_dtype="native"), "int8": dict(kv_dtype="int8"),
+             "fp8": dict(kv_dtype="fp8"),
+             "native spec k2": dict(kv_dtype="native", speculate_k=2)}
+    out = {}
+    for tag, kw in cases.items():
+        got = {}
+        for dev, p in (("cuda", _to(cpu_params, "cuda")), ("cpu", cpu_params)):
+            m = DecoderLM(small, torch.float32, dev)
+            cb, done = prefix_serve(m, p, prompts, urgent, 24, **geometry,
+                                    **kw)
+            bundle = cb.occupancy_bundle()
+            traces = {n: bundle.traces[n] for n in ("kv", "kv_logical")}
+            got[dev] = dict(
+                tokens=[r.output for r in done],
+                preemptions=[r.preemptions for r in done],
+                stats=vars(cb.stats),
+                events={n: (t.ev_times, t.ev_dneeded, t.ev_dobsolete)
+                        for n, t in traces.items()},
+                sweep={n: [(r.capacity_mib, r.banks, r.result.n_transitions)
+                           for r in sweep(bundle, mem_name=n,
+                                          capacities_mib=[1, 2],
+                                          banks=[1, 2, 4], device=dev,
+                                          prune=True).rows]
+                       for n in traces})
+        for key in got["cpu"]:
+            check(got["cuda"][key] == got["cpu"][key],
+                  f"reference_prefix {tag}: {key} on the card == CPU plain "
+                  "path")
+        st = cb.stats
+        fired = mechanisms(st)
+        check(all(v > 0 for v in fired.values()),
+              f"reference_prefix {tag}: every mechanism fired {fired}")
+        check(len(done) == len(prompts) + len(urgent),
+              f"reference_prefix {tag}: every request finished")
+        out[tag] = dict(fired, prefills=st.prefills, chunks=st.chunks,
+                        spec_rounds=st.spec_rounds,
+                        sweep_rows={n: len(v) for n, v in
+                                    got["cuda"]["sweep"].items()})
+    return dict(arch=small.name, layers=small.num_layers, dtype="float32",
+                requests=len(prompts), priority_requests=len(urgent),
+                geometry=geometry, cases=out, tokens_equal=True,
+                stats_equal=True, events_equal=True, sweep_rows_equal=True)
+
+
+def serve_prefix(model, params) -> tuple:
+    """Full-width prefix-cached serving: chat_sysprompt traffic with 384-token
+    system prompts through 8 slots, suffix prefills in 256-token slices,
+    then 4 priority-1 requests with 512-token prompts after two chunks, in a
+    pool small enough that cached prefixes are evicted. Launch counts are
+    set to 0 just before and read just after. Every mechanism must fire,
+    every request finish, every prefill forward (all shared prefills here)
+    launch the prefill kernel once per layer and every decode step the
+    paged decode kernel once per layer; the card's sweeps of "kv" and
+    "kv_logical" must equal the CPU's. The same stream served without the
+    prefix cache gives the count of requests whose tokens agree (reported,
+    not gated). Returns (the phase's fields, the flash and decode launch
+    counts)."""
+    from repro_torch.core.explorer import min_capacity_mib, sweep
+    from repro_torch.kernels import build
+    from repro_torch.serve.paged import pages_for
+    from repro_torch.traffic import LengthModel
+    cfg = model.cfg
+    L = cfg.num_layers
+    prompts = chat_prompts(cfg.vocab_size, PREFIX_REQUESTS, LengthModel(
+        prompt_mean=128, prompt_sigma=0.5, output_mean=64, max_len=1024), 384)
+    urgent = list(np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (URGENT, URGENT_LEN)))
+    per_slot = pages_for(max(len(p) for p in prompts + urgent)
+                         + NEW_TOKENS - 1, PAGE_SIZE)
+    geometry = dict(num_slots=SLOTS, page_size=PAGE_SIZE,
+                    num_pages=PREFIX_POOL_PAGES, max_pages_per_slot=per_slot,
+                    chunk_steps=CHUNK_STEPS, prefill_chunk_tokens=PREFIX_CHUNK)
+    # count the prefill forwards (plain and shared) and their seconds
+    forwards = {"prefill": 0, "prefill_shared": 0}
+    prefill_s = [0.0]
+
+    def counted(name):
+        fn = getattr(type(model), name).__get__(model)
+
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            prefill_s[0] += time.perf_counter() - t0
+            forwards[name] += 1
+            return out
+        return call
+
+    for name in forwards:
+        setattr(model, name, counted(name))
+    try:
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cb, done = prefix_serve(model, params, prompts, urgent, NEW_TOKENS,
+                                prefix_cache=True, **geometry)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = build.launch_counts()
+    finally:
+        for name in forwards:
+            delattr(model, name)
+    st = cb.stats
+    fired = mechanisms(st)
+    check(all(v > 0 for v in fired.values()),
+          f"serve_prefix: every mechanism fired {fired}")
+    check(len(done) == PREFIX_REQUESTS + URGENT
+          and st.finished == PREFIX_REQUESTS + URGENT
+          and all(len(r.output) == NEW_TOKENS
+                  and all(0 <= t < cfg.vocab_size for t in r.output)
+                  for r in done),
+          "serve_prefix: every request finished with NEW_TOKENS in-vocab "
+          "tokens")
+    n_fwd = forwards["prefill"] + forwards["prefill_shared"]
+    check(counts["flash_attention"] == L * n_fwd,
+          f"serve_prefix: flash_attention launches "
+          f"{counts['flash_attention']} == layers x prefill forwards "
+          f"{L * n_fwd}")
+    check(forwards["prefill"] == 0 and st.prefills <= n_fwd
+          <= st.prefills + st.prefill_slices,
+          f"serve_prefix: every admission prefilled through prefill_shared, "
+          f"one forward per slice ({forwards}, {fired})")
+    steps = st.chunks * CHUNK_STEPS
+    check(counts["paged_gqa_decode"] == L * steps,
+          f"serve_prefix: paged_gqa_decode launches "
+          f"{counts['paged_gqa_decode']} == layers x steps {L * steps}")
+    check(int(cb.ledger.trace.as_arrays()[1][-1]) == 0
+          and cb.ledger.allocator.n_allocated
+          == cb.ledger.index.n_cached_pages,
+          "serve_prefix: no slot holds pages at the end, only the cache")
+    bundle = cb.occupancy_bundle()
+    traces = {}
+    for name in ("kv", "kv_logical"):
+        tr = bundle.traces[name]
+        mc = min_capacity_mib(tr.peak_needed())
+        kw = dict(mem_name=name, capacities_mib=[mc, mc + 32, mc + 64],
+                  banks=[1, 2, 4, 8, 16], prune=True)
+        build.reset_launch_counts()
+        table = sweep(bundle, device="cuda", **kw)
+        torch.cuda.synchronize()
+        sweep_counts = build.launch_counts()
+        plain = sweep(bundle, device="cpu", **kw)
+        check([(r.capacity_mib, r.banks, r.result.n_transitions)
+               for r in table.rows]
+              == [(r.capacity_mib, r.banks, r.result.n_transitions)
+                  for r in plain.rows],
+              f"serve_prefix: {name} sweep rows and transition counts equal "
+              "the plain-version sweep")
+        rel = max(abs(a.result.e_total / b.result.e_total - 1.0)
+                  for a, b in zip(table.rows, plain.rows))
+        check(rel <= 1e-12, f"serve_prefix: {name} e_total rel err {rel}")
+        check(sweep_counts["running_time"] == 1
+              and sweep_counts["exact_bank_stats"] >= 1,
+              f"serve_prefix: the {name} sweep ran kernel 3 after one scan")
+        best = table.best()
+        traces[name] = dict(
+            peak_needed_bytes=tr.peak_needed(),
+            peak_pages=tr.peak_needed() // cb.page_bytes,
+            capacities_mib=kw["capacities_mib"], rows=len(table.rows),
+            e_total_rel_err=rel,
+            best={"capacity_mib": best.capacity_mib, "banks": best.banks,
+                  "e_total_j": best.result.e_total},
+            sweep_launches={k: sweep_counts[k] for k in (
+                "running_time", "exact_bank_stats", "bank_energy")})
+    # the same stream without the prefix cache (reported, not gated: the
+    # reference fails this property itself, and projections of different
+    # row counts may round differently)
+    _, plain_done = prefix_serve(model, params, prompts, urgent, NEW_TOKENS,
+                                 **geometry)
+    admitted = sum(len(r.tokens) * (1 + r.preemptions) for r in done)
+    fields = dict(
+        arch=cfg.name, layers=L, dtype="bfloat16", kv_dtype="native",
+        slots=SLOTS, page_size=PAGE_SIZE, chunk_steps=CHUNK_STEPS,
+        prefill_chunk_tokens=PREFIX_CHUNK, num_pages=PREFIX_POOL_PAGES,
+        max_pages_per_slot=per_slot, requests=PREFIX_REQUESTS,
+        priority_requests=URGENT, priority_prompt=URGENT_LEN,
+        prompt_lengths=[len(p) for p in prompts], new_tokens=NEW_TOKENS,
+        requests_finished=st.finished, **fired, prefills=st.prefills,
+        prefill_forwards=forwards, chunks=st.chunks,
+        decode_tokens=st.decode_steps, decode_steps=steps,
+        wall_s=wall_s, prefill_s=prefill_s[0],
+        # wall time of the whole run, admission prefills included
+        decode_tokens_per_s=st.decode_steps / wall_s,
+        prompt_tokens_admitted=admitted,
+        reused_share=st.prefix_tokens_reused / admitted,
+        peak_pages=st.peak_pages, page_bytes=cb.page_bytes, traces=traces,
+        requests_equal_without_prefix_cache=sum(
+            a.output == b.output for a, b in zip(done, plain_done)),
+        launches={k: counts[k] for k in ("flash_attention",
+                                         "paged_gqa_decode")})
+    return fields, counts
+
+
 # -------------------------------------------------------------- stage one
 def stage1_sweep(sim, capacities, prune: bool) -> dict:
     """One Stage-II sweep of a Stage-I result's SRAM trace on the card,
@@ -1091,6 +1440,7 @@ def main() -> None:
     emit("reference", arch=small.name, requests=len(prompts),
          kv_dtypes=list(KV_DTYPES), tokens_equal=True, sweep_rows=sweep_rows,
          **spec_dense)
+    emit("reference_prefix", **reference_prefix())
 
     # ---- serve: the main path at full width, launch counts from 0 ----
     cfg = get_arch(ARCH)
@@ -1318,13 +1668,32 @@ def main() -> None:
     launches["gqa_decode"] = dense.pop("launches")
     emit("serve_dense", arch=cfg.name, dtype="bfloat16", **dense)
 
+    # ---- serve_prefix: prefix cache, chunked prefill, priority preemption --
+    prefix_fields, prefix_counts = serve_prefix(model, params)
+    emit("serve_prefix", **prefix_fields)
+
     # ---- stage1: the paper's flow, Stage I on the host, Stage II here ----
     stage1, stage1_launches, horizon_rows = stage1_phase()
     emit("stage1", **stage1)
 
+    offset = rows["flash_attention_offset"]
+    flash = dict(
+        rows["flash_attention"][0],
+        prefix_serve_launches=prefix_counts["flash_attention"],
+        offset_cases=dict(
+            cases=len(offset),
+            max_abs_err=max(r["max_abs_err"] for r in offset),
+            offset0_rows_max_abs_diff=max(r["offset0_rows_max_abs_diff"]
+                                          for r in offset),
+            # the largest bf16 case: q_offset 384, 256 suffix rows
+            largest={k: offset[len(FLASH_OFFSETS) * len(FLASH_SUFFIXES) - 1][k]
+                     for k in ("shape", "dtype", "offset_ms",
+                               "offset_device_ms", "library_offset_ms",
+                               "library_offset_device_ms", "bound_ms",
+                               "bound_by")}))
     kernels = []
     for name, row in (("paged_gqa_decode", rows["paged_gqa_decode"][0]),
-                      ("flash_attention", rows["flash_attention"][0]),
+                      ("flash_attention", flash),
                       ("paged_gqa_decode_quant",
                        rows["paged_gqa_decode_quant"][0]),
                       ("int8_matmul", rows["int8_matmul"][0]),
@@ -1353,7 +1722,9 @@ def main() -> None:
             **{key: row[key] for key in ("variant", "device_ms",
                                          "library_device_ms",
                                          "scan_launches", "stage1_launches",
-                                         "stage1_decode_horizon")
+                                         "stage1_decode_horizon",
+                                         "prefix_serve_launches",
+                                         "offset_cases")
                if key in row}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

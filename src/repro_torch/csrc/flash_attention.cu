@@ -5,8 +5,12 @@
 // prefill runs (repro/models/attention.py), which computes the same function.
 //
 // Layout: q (B, S, H, d), k/v (B, T, K, d), out (B, S, H, d), as the model
-// produces them; query head h reads KV head h / (H / K). Query row s attends
-// keys t <= s (no offset). Output in the input dtype.
+// produces them; query head h reads KV head h / (H / K). Query row s sits at
+// absolute position q_offset + s and attends keys t <= q_offset + s: a
+// plain prefill has q_offset 0; a shared or chunked prefill passes the
+// m rows already cached (the prefix's keys first in k/v, then the suffix's)
+// and computes only the S suffix rows, as the reference's
+// blocked_attention(..., q_offset=m) does. Output in the input dtype.
 //
 // Bound on the H100: at prefill lengths of hundreds of tokens the work is
 // O(S^2 d) multiply-adds per head against O(S d) bytes, so it is bound by
@@ -42,9 +46,10 @@
 //
 // Both walk a query row's KV tiles in a fixed order from key 0 upward up
 // to the block's last visible key (tiles above the causal diagonal are
-// never loaded), so a row's reduction order does not depend on the prompt
-// length: row r of a prompt equals row r of any longer prompt with the
-// same prefix, bit for bit. A masked score is -1e30 and gives p = 0, so a
+// never loaded), so a row's reduction order depends neither on the prompt
+// length nor on the query offset: row r of a prompt equals row r of any
+// longer prompt with the same prefix, and the rows of an offset-m call
+// equal rows m.. of the offset-0 call over the same keys, bit for bit. A masked score is -1e30 and gives p = 0, so a
 // tile wholly past a row's diagonal leaves its m, l and accumulators
 // unchanged; the denominator is clamped at 1e-30, as in the reference;
 // ragged S is masked, never padded.
@@ -62,7 +67,7 @@ template <typename T, int DC>  // DC: head dims per lane, d <= 32 * DC
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int S, int Tk,
-                 int H, int K, int d, float scale) {
+                 int H, int K, int d, int q_off, float scale) {
   extern __shared__ float smem[];
   const int ld = d + 1;  // padded row stride of the K/V tiles
   float* q_sh = smem;               // kBQ * d
@@ -90,7 +95,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_end = min(q_last + 1, Tk);  // keys beyond are above the diagonal
+  // keys beyond are above the diagonal of the block's last row
+  const int k_end = min(q_off + q_last + 1, Tk);
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile is consumed (and q_sh is written)
     for (int i = tid; i < kBK * d; i += kWarps * 32) {
@@ -122,7 +128,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int qs = q0 + warp * kRowsPerWarp + r;
-      const float sv = (t < Tk && t <= qs) ? s[r] : kNegInf;
+      const float sv = (t < Tk && t <= q_off + qs) ? s[r] : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(sv));
       const float p = sv <= kNegInf / 2 ? 0.f : expf(sv - m_new);
       const float corr = expf(m[r] - m_new);
@@ -159,8 +165,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int Tk, int H, int K, int d, float scale,
-                   cudaStream_t stream) {
+                   int B, int S, int Tk, int H, int K, int d, int q_off,
+                   float scale, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   const size_t smem = (kBQ * d + 2 * kBK * (d + 1)) * sizeof(float);
   const T* qp = static_cast<const T*>(q);
@@ -168,11 +174,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
   if (d <= 32)
-    flash_fwd_kernel<T, 1><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, scale);
+    flash_fwd_kernel<T, 1><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, q_off, scale);
   else if (d <= 64)
-    flash_fwd_kernel<T, 2><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, scale);
+    flash_fwd_kernel<T, 2><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, q_off, scale);
   else if (d <= 128)
-    flash_fwd_kernel<T, 4><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, scale);
+    flash_fwd_kernel<T, 4><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, q_off, scale);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -265,7 +271,7 @@ template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ out, int S,
-                int Tk, int H, int K, float scale_log2) {
+                int Tk, int H, int K, int q_off, float scale_log2) {
   static_assert(kBQ == kBK, "query and KV tiles share load_tile");
   constexpr int kLd = D + kPad;
   constexpr int kDT = D / 8;  // 8-wide output column tiles per row
@@ -286,7 +292,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kg = k + (static_cast<size_t>(b) * Tk * K + kh) * D;
   const bf16* vg = v + (static_cast<size_t>(b) * Tk * K + kh) * D;
 
-  const int k_end = min(min(q0 + kBQ, S), Tk);  // keys beyond: above diagonal
+  // keys beyond are above the diagonal of the block's last row
+  const int k_end = min(q_off + min(q0 + kBQ, S), Tk);
   const int ntiles = (k_end + kBK - 1) / kBK;
 
   load_tile<D>(q_sh, qg, q0, S, q_stride, tid);
@@ -297,9 +304,11 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
 
   // this thread's query rows, and their state: index 0 is row g of the
-  // warp's 16, index 1 row g + 8; l is this thread's partial sum over the
-  // columns it holds, summed across the four threads of a row at the end
+  // warp's 16, index 1 row g + 8 (`pos` their absolute positions); l is
+  // this thread's partial sum over the columns it holds, summed across the
+  // four threads of a row at the end
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const int pos[2] = {q_off + row[0], q_off + row[1]};
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float o[kDT][4];
 #pragma unroll
@@ -351,7 +360,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int t = k0 + nt * 8 + c2 + (e & 1), r = e >> 1;
         const float x =
-            (t <= row[r] && t < Tk) ? s[nt][e] * scale_log2 : kNegInf;
+            (t <= pos[r] && t < Tk) ? s[nt][e] * scale_log2 : kNegInf;
         s[nt][e] = x;
         tmax[r] = fmaxf(tmax[r], x);
       }
@@ -428,8 +437,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int Tk, int H, int K, float scale_log2,
-                   cudaStream_t stream) {
+                   int B, int S, int Tk, int H, int K, int q_off,
+                   float scale_log2, cudaStream_t stream) {
   const int smem = (kBQ + 4 * kBK) * (D + kPad) * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
       flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -438,7 +447,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_tc_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), S, Tk, H, K,
-      scale_log2);
+      q_off, scale_log2);
   return cudaGetLastError();
 }
 
@@ -447,26 +456,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q: (B, S, H, d); k, v: (B, T, K, d); out: (B, S, H, d); all contiguous,
-// dtype 0 = float32, 1 = bfloat16; d <= 128. tensor_cores = 0 runs the
+// dtype 0 = float32, 1 = bfloat16; d <= 128; query row s attends keys
+// t <= q_offset + s (q_offset >= 0). tensor_cores = 0 runs the
 // CUDA-core kernel with scale = 1/sqrt(d); 1 runs the tensor-core kernel
 // (bfloat16, d 64 or 128, every pointer 16-byte aligned) with
 // scale = log2(e)/sqrt(d).
 TRAPTI_EXPORT int flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
-                                      int T, int H, int K, int d, float scale,
-                                      int dtype, int tensor_cores,
-                                      void* stream) {
+                                      int T, int H, int K, int d,
+                                      int q_offset, float scale, int dtype,
+                                      int tensor_cores, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (tensor_cores) {
     if (dtype == kBF16 && d == 64)
-      err = tc::launch<64>(q, k, v, out, B, S, T, H, K, scale, s);
+      err = tc::launch<64>(q, k, v, out, B, S, T, H, K, q_offset, scale, s);
     else if (dtype == kBF16 && d == 128)
-      err = tc::launch<128>(q, k, v, out, B, S, T, H, K, scale, s);
+      err = tc::launch<128>(q, k, v, out, B, S, T, H, K, q_offset, scale,
+                            s);
   } else if (dtype == kF32) {
-    err = launch<float>(q, k, v, out, B, S, T, H, K, d, scale, s);
+    err = launch<float>(q, k, v, out, B, S, T, H, K, d, q_offset, scale, s);
   } else if (dtype == kBF16) {
-    err = launch<__nv_bfloat16>(q, k, v, out, B, S, T, H, K, d, scale, s);
+    err = launch<__nv_bfloat16>(q, k, v, out, B, S, T, H, K, d, q_offset,
+                                scale, s);
   }
   return static_cast<int>(err);
 }

@@ -6,7 +6,10 @@ Replaces the reference's prefill attention: the Pallas
 the jnp `blocked_attention` the reference prefill runs
 (`repro/models/attention.py`), which compute the same function. Unlike the
 Pallas kernel (which asserts S % block == 0) it takes ragged prompt lengths
-by masking. Source: `csrc/flash_attention.cu`, which holds two kernels."""
+by masking, and a query offset (`q_offset`, the reference's
+`blocked_attention(..., q_offset=m)`) for the suffix rows of a shared or
+chunked prefill. Source: `csrc/flash_attention.cu`, which holds two
+kernels."""
 from __future__ import annotations
 
 import ctypes
@@ -26,7 +29,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = build.register(build.CudaKernel(
     "flash_attention", "flash_attention", "flash_attention_fwd",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]))
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+     _P]))
 
 
 def variant(q: torch.Tensor) -> str:
@@ -43,10 +47,18 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_offset: int = 0) -> torch.Tensor:
     """Causal attention. q: (B, S, H, h); k, v: (B, T, K, h), H % K == 0;
-    query row s attends keys t <= s. Returns (B, S, H, h) in q's dtype.
+    query row s sits at absolute position q_offset + s and attends keys
+    t <= q_offset + s (T >= q_offset + S in the shared prefill, whose keys
+    are the m = q_offset cached rows followed by the S suffix rows).
+    Returns (B, S, H, h) in q's dtype.
+
+    The kernels walk key tiles from key 0 whatever the offset, so rows at
+    offset m equal rows m.. of the offset-0 call over the same keys, bit
+    for bit, and keys past a row's diagonal (zero padding included) never
+    change it.
 
     On the card the kernel is chosen by dtype and head dim (`variant`):
     bf16 with h in {64, 128} runs the tensor-core kernel (`mma.sync` bf16
@@ -54,8 +66,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     float32, and bf16 with any other h <= 128, run the CUDA-core kernel in
     float32. Nothing falls back to PyTorch: a refused launch raises. On
     the CPU it runs `flash_attention_ref`."""
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if q.device.type != "cuda":
-        return flash_attention_ref(q, k, v)
+        return flash_attention_ref(q, k, v, q_offset)
     B, S, H, d = q.shape
     T, K = k.shape[1], k.shape[2]
     if k.shape != (B, T, K, d) or v.shape != k.shape or H % K:
@@ -77,5 +91,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0:
         return out
     KERNEL(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), B, S, T,
-           H, K, d, scale, DTYPES[q.dtype], int(tc), build.stream_ptr(q))
+           H, K, d, int(q_offset), scale, DTYPES[q.dtype], int(tc),
+           build.stream_ptr(q))
     return out

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the causal prefill attention kernels.
 
 `flash_attention_ref` is the same function as the reference's
-`flash_attention_ref` and jnp `blocked_attention` (causal, no query offset),
-in the layout the model uses: q (B, S, H, h), k/v (B, T, K, h) with
-H % K == 0; query head h reads KV head h // (H // K). Full float32 softmax;
-output in q's dtype. The wrapper runs it on the CPU.
+`flash_attention_ref` and jnp `blocked_attention` (causal, with its query
+offset), in the layout the model uses: q (B, S, H, h), k/v (B, T, K, h) with
+H % K == 0; query head h reads KV head h // (H // K); query row s attends
+keys t <= q_offset + s. Full float32 softmax; output in q's dtype. The
+wrapper runs it on the CPU.
 
 `flash_attention_bf16_mirror_ref` repeats the arithmetic of the bf16
 tensor-core kernel (`csrc/flash_attention.cu`, `flash_tc_kernel`), and is
@@ -29,8 +30,8 @@ LOG2E = 1.4426950408889634
 MIRROR_ATOL = 2.0 ** -10
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> torch.Tensor:
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_offset: int = 0) -> torch.Tensor:
     B, S, H, d = q.shape
     T, K = k.shape[1], k.shape[2]
     group = H // K
@@ -38,7 +39,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
     kf = k.float().repeat_interleave(group, dim=2)
     vf = v.float().repeat_interleave(group, dim=2)
     s = torch.einsum("bshd,bthd->bhst", qf, kf)
-    mask = (torch.arange(S, device=q.device)[:, None]
+    mask = (torch.arange(S, device=q.device)[:, None] + q_offset
             >= torch.arange(T, device=q.device)[None, :])
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
@@ -46,15 +47,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_bf16_mirror_ref(q: torch.Tensor, k: torch.Tensor,
-                                    v: torch.Tensor) -> torch.Tensor:
+                                    v: torch.Tensor,
+                                    q_offset: int = 0) -> torch.Tensor:
     """The tensor-core kernel's arithmetic: KV tiles of 64 keys walked from
-    key 0 upward; float32 scores of the bf16 operands, scaled by
-    log2(e) / sqrt(h) in float32; a masked score is -1e30 and gives p = 0;
-    an online softmax in base 2 with float32 m, l and accumulators; P
-    rounded to bf16 for P·V; the denominator clamped at 1e-30. Products of
-    bf16 values are exact in float64, so the tile products are summed there
-    and rounded once: a row does not depend on the prompt's length or the
-    matrix shapes. Inputs are bf16; returns (B, S, H, h) in bf16."""
+    key 0 upward, query row s at position q_offset + s; float32 scores of
+    the bf16 operands, scaled by log2(e) / sqrt(h) in float32; a masked
+    score is -1e30 and gives p = 0; an online softmax in base 2 with
+    float32 m, l and accumulators; P rounded to bf16 for P·V; the
+    denominator clamped at 1e-30. Products of bf16 values are exact in
+    float64, so the tile products are summed there and rounded once: a row
+    does not depend on the prompt's length, the query offset or the matrix
+    shapes. Inputs are bf16; returns (B, S, H, h) in bf16."""
     B, S, H, d = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -63,7 +66,7 @@ def flash_attention_bf16_mirror_ref(q: torch.Tensor, k: torch.Tensor,
     pad = (0, 0, 0, 0, 0, nt * KV_TILE - T)
     kd, vd = F.pad(k.double(), pad), F.pad(v.double(), pad)
     qd = q.double().reshape(B, S, K, G, d)
-    rows = torch.arange(S, device=q.device)[:, None]
+    rows = torch.arange(S, device=q.device)[:, None] + q_offset
     m = torch.full((B, S, K, G), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)

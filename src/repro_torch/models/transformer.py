@@ -10,11 +10,15 @@ serving entry points of the reference's `repro/models/transformer.py`:
     decode_step_paged(params, cache, tokens)   — one token per slot
     verify_step_paged(params, cache, tokens)   — a speculative window
     self_spec_draft(model, params, skip)       — layer-skipping draft
+    prefill_shared(params, batch, prefix)      — suffix-only prefill
+    gather_prefix_pages, prefix_tail_rows, write_shared_prefill_to_pages,
+    copy_pages                                 — prefix sharing's page verbs
 
 Parameters keep the reference's tree (`repro_torch.params`): the blocks of
 the single pattern slot are stacked along a leading layer axis, and the
 unstacked `tail` is empty for these configs. Prefill attention runs the
-hand-written flash kernel where the reference runs jnp `blocked_attention`;
+hand-written flash kernel where the reference runs jnp `blocked_attention`
+(the shared prefill too, through the kernel's query offset);
 paged decode runs the paged GQA kernel, verification the paged verify
 kernel, and dense decode the dense GQA decode kernel (where the reference
 runs a jnp einsum). All dispatch on the tensors' device: the CUDA kernel on
@@ -23,9 +27,10 @@ another float dtype, fp8 E4M3 codes (uint8) or int8 with per-row float32
 scales (`kv_dtype`, as in the reference).
 
 Unlike the reference's immutable arrays, caches are updated in place:
-`write_prefill_to_pages`, `decode_step_paged`, `verify_step_paged` and
-`decode_step` write into the pools / dense caches and the position, table
-and liveness tensors they are given.
+`write_prefill_to_pages`, `write_shared_prefill_to_pages`, `copy_pages`,
+`decode_step_paged`, `verify_step_paged` and `decode_step` write into the
+pools / dense caches and the position, table and liveness tensors they are
+given.
 """
 from __future__ import annotations
 
@@ -34,14 +39,17 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import require_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_gqa_decode import (paged_gqa_decode,
                                                   paged_gqa_decode_quant)
 from repro_torch.kernels.paged_gqa_verify import paged_gqa_verify
-from repro_torch.kernels.quant import (FP8_STORAGE_DTYPE, kv_dtype_spec,
-                                       quantize_page_rows, to_fp8_codes)
+from repro_torch.kernels.quant import (FP8_STORAGE_DTYPE,
+                                       dequantize_page_rows, from_fp8,
+                                       kv_dtype_spec, quantize_page_rows,
+                                       to_fp8_codes)
 from repro_torch.models.attention import (cache_write, decode_attention,
                                           decode_valid_mask, project_qkv)
 from repro_torch.models.common import (apply_norm, apply_rope, embed_tokens,
@@ -262,6 +270,161 @@ def write_prefill_to_pages(cfg, paged: dict, dense: dict, slot: int,
     return paged
 
 
+# ---------------------------------------------------------------------------
+# Prefix sharing: gather / COW-write / page-copy verbs and the suffix prefill
+# ---------------------------------------------------------------------------
+#
+# Shared pages are reached through the same page-table indirection as private
+# ones, so sharing needs no decode-kernel change. The device-side verbs:
+#   gather_prefix_pages            pages -> dense (L, 1, m, K, h) prefix KV
+#   prefix_tail_rows               last j rows of a gathered prefix (the
+#                                  partially matched page's valid rows)
+#   write_shared_prefill_to_pages  head + suffix KV -> fresh pages; table row
+#                                  = shared pages ++ fresh pages
+#   copy_pages                     COW split: clone one page in every layer
+# and DecoderLM.prefill_shared runs the suffix-only forward against the
+# gathered prefix KV. All of it is for pure full-attention stacks: recurrent
+# blocks carry position-mixed state that cannot be cut at a prefix boundary.
+
+def _require_pure_full(cfg, what: str) -> None:
+    if any(k != "full" for k in cfg.layer_kinds()):
+        raise NotImplementedError(
+            f"{what} requires a pure full-attention stack; "
+            f"{cfg.name} mixes {set(cfg.layer_kinds())}")
+
+
+def gather_prefix_pages(cfg, paged: dict, page_ids: torch.Tensor,
+                        n_rows: int) -> dict:
+    """Collect the first `n_rows` KV rows stored in `page_ids` (table order)
+    as a dense prefix {"slots": [{"k", "v"}], "tail": []} with leaves
+    (L, 1, n_rows, K, h). Rows come back exactly as stored (post-RoPE, pool
+    dtype); int8 pools dequantize with their per-row scales and fp8 pools
+    decode their E4M3 codes, both returning float32 rows."""
+    _require_pure_full(cfg, "gather_prefix_pages")
+    idx = torch.as_tensor(page_ids, device=paged["page_table"].device).long()
+
+    def take(pool, spool):
+        x = pool[:, idx]                                # (L, npg, K, ps, h)
+        if spool is not None:
+            x = dequantize_page_rows(x, spool[:, idx])
+        elif pool.dtype == FP8_STORAGE_DTYPE:
+            x = from_fp8(x)
+        n, npg, K, ps, h = x.shape
+        x = x.transpose(2, 3).reshape(n, npg * ps, K, h)
+        return x[:, None, :n_rows]                      # (L, 1, rows, K, h)
+
+    return {"slots": [{"k": take(e["kp"], e.get("ks")),
+                       "v": take(e["vp"], e.get("vs"))}
+                      for e in paged["slots"]],
+            "tail": []}
+
+
+def prefix_tail_rows(prefix: dict, j: int) -> dict:
+    """Last `j` rows of a gathered prefix: the valid head of the boundary
+    page a COW admission rewrites into its private copy (j == 0: empty)."""
+    def cut(a):
+        return a[:, :, a.shape[2] - j:]
+    return {"slots": [{"k": cut(e["k"]), "v": cut(e["v"])}
+                      for e in prefix["slots"]],
+            "tail": []}
+
+
+def write_shared_prefill_to_pages(cfg, paged: dict, suffix: dict, head: dict,
+                                  slot: int, shared_ids: torch.Tensor,
+                                  fresh_ids: torch.Tensor) -> dict:
+    """Prefix-hit admission, in place: map `shared_ids` read-only into the
+    slot's table, then write `head` (the j rows re-owned from the partially
+    matched page) followed by `suffix` (the freshly computed suffix KV)
+    page-aligned into `fresh_ids`. Sets pos = |shared| * ps + j + |suffix|
+    and activates the slot. With empty `shared_ids`/`head` this is a plain
+    paged admission of a full prefill. int8 pools requantize the written
+    rows per row, which is idempotent for `head` rows dequantized from the
+    donor's pages, so shared pages stay quantized and bit-stable."""
+    _require_pure_full(cfg, "write_shared_prefill_to_pages")
+    dev = paged["page_table"].device
+    shared_ids = torch.as_tensor(shared_ids, dtype=torch.int32, device=dev)
+    fresh_ids = torch.as_tensor(fresh_ids, dtype=torch.int32, device=dev)
+    n_shared, npg_f = len(shared_ids), len(fresh_ids)
+    idx = fresh_ids.long()
+    for e, hd, sf in zip(paged["slots"], head["slots"], suffix["slots"]):
+        ps = e["kp"].shape[-2]
+        for pool, spool, head_x, suf_x in (
+                (e["kp"], e.get("ks"), hd["k"], sf["k"]),
+                (e["vp"], e.get("vs"), hd["v"], sf["v"])):
+            quantized = spool is not None
+
+            def cast(a):
+                return a.float() if quantized else _pool_cast(a, pool.dtype)
+
+            rows = torch.cat([cast(head_x[:, 0]), cast(suf_x[:, 0])], dim=1)
+            n, r, K, h = rows.shape
+            rows = F.pad(rows, (0, 0, 0, 0, 0, npg_f * ps - r))
+            x = rows.reshape(n, npg_f, ps, K, h).transpose(2, 3)
+            if quantized:
+                q8, sc = quantize_page_rows(x)
+                pool[:, idx] = q8
+                spool[:, idx] = sc
+            else:
+                pool[:, idx] = x
+    ps = paged["slots"][0]["kp"].shape[-2]
+    j = head["slots"][0]["k"].shape[2]
+    s_suf = suffix["slots"][0]["k"].shape[2]
+    row = torch.full_like(paged["page_table"][slot], PAGED_NULL_PAGE)
+    row[:n_shared] = shared_ids
+    row[n_shared:n_shared + npg_f] = fresh_ids
+    paged["page_table"][slot] = row
+    paged["pos"][slot] = n_shared * ps + j + s_suf
+    paged["active"][slot] = True
+    return paged
+
+
+def copy_pages(cfg, paged: dict, src: int, dst: int) -> dict:
+    """COW split, in place: duplicate page `src` into `dst` in every layer
+    pool. Quantized pools copy payload and per-row scales alike, so COW
+    clones stay quantized bit for bit."""
+    _require_pure_full(cfg, "copy_pages")
+    for e in paged["slots"]:
+        for a in e.values():
+            a[:, dst] = a[:, src]
+    return paged
+
+
+def _block_shared_prefill(cfg, p: dict, x: torch.Tensor,
+                          positions: torch.Tensor, pk: torch.Tensor,
+                          pv: torch.Tensor, pad_to: Optional[int] = None):
+    """Full-attention block over suffix rows against a cached prefix (the
+    reference's `_apply_block_shared_prefill`).
+
+    x: (1, S_suf, D) suffix activations; positions: (S_suf,) absolute
+    positions m .. m + S_suf - 1; pk/pv: (1, m, K, h) prefix KV exactly as
+    stored (post-RoPE). Attention runs over concat(prefix, suffix) keys
+    through the prefill kernel with `q_offset = m`. Returns (x_out, (k, v))
+    with the suffix's KV only.
+
+    The reference zero-pads the keys to the fixed width `pad_to` (the
+    slot's capacity) so that its jnp reduction tree, and with it a row's
+    bits, does not depend on the key count: that is what makes a prefix
+    hit's KV equal to the donor's. The port's kernel needs no padding for
+    that: its key tiles always start at key 0, a masked score gives p = 0
+    exactly, and tiles past a row's diagonal are never loaded, so a row's
+    value does not depend on the key count beyond its own position. The
+    keys are therefore not padded; `pad_to` is kept for the reference's
+    signature and must cover m + S_suf."""
+    m = pk.shape[1]
+    y = apply_norm(cfg, p["norm1"], x)
+    q, k, v = project_qkv(cfg, p["attn"], y, y)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    kk = torch.cat([pk.to(k.dtype), k], dim=1)
+    vv = torch.cat([pv.to(v.dtype), v], dim=1)
+    if pad_to is not None and pad_to < kk.shape[1]:
+        raise ValueError(f"pad_to {pad_to} < {kk.shape[1]} keys")
+    o = flash_attention(q, kk, vv, q_offset=m)
+    x = x + o.reshape(*x.shape[:2], cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
+    return _ffn_residual(cfg, p, x), (k, v)
+
+
 @dataclass
 class DecoderLM:
     """Dense decoder for `block_pattern == ("full",)` configs, computing in
@@ -310,6 +473,40 @@ class DecoderLM:
         logits = lm_logits(cfg, params["embed"], x[:, -1:, :])
         return logits, {"slots": [{"k": dense(ks), "v": dense(vs)}],
                         "pos": S}
+
+    def prefill_shared(self, params: dict, batch: dict, prefix: dict,
+                       pad_to: Optional[int] = None):
+        """Suffix-only prefill against a cached prompt prefix.
+
+        batch["tokens"]: (1, S_suf), the prompt tokens after the matched
+        prefix; `prefix`: the tree from `gather_prefix_pages` (per-layer
+        post-RoPE KV of the matched m tokens). Embeds and ropes the suffix
+        at absolute positions m .. m + S_suf - 1 and attends over the
+        prefix's keys and its own, so only the suffix's compute is paid.
+        Returns (last-position logits (1, 1, V), suffix KV {"slots":
+        [{"k", "v": (L, 1, S_suf, K, h)}], "tail": []} for
+        `write_shared_prefill_to_pages`). With an empty prefix (m == 0)
+        this is a full prefill without the dense cache's padding. `pad_to`:
+        see `_block_shared_prefill`."""
+        cfg = self.cfg
+        _require_pure_full(cfg, "prefill_shared")
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        B, S = tokens.shape
+        m = prefix["slots"][0]["k"].shape[2]
+        positions = m + torch.arange(S, device=self.device)
+        x = embed_tokens(cfg, params["embed"], tokens,
+                         positions[None].expand(B, S), self.compute_dtype)
+        pk, pv = prefix["slots"][0]["k"], prefix["slots"][0]["v"]
+        ks, vs = [], []
+        for i, p in enumerate(self._blocks(params)):
+            x, (k, v) = _block_shared_prefill(cfg, p, x, positions, pk[i],
+                                              pv[i], pad_to)
+            ks.append(k)
+            vs.append(v)
+        x = apply_norm(cfg, params["final_norm"], x)
+        logits = lm_logits(cfg, params["embed"], x[:, -1:, :])
+        return logits, {"slots": [{"k": torch.stack(ks),
+                                   "v": torch.stack(vs)}], "tail": []}
 
     def decode_step_paged(self, params: dict, cache: dict,
                           tokens: torch.Tensor):

@@ -13,12 +13,13 @@ reference's `repro/serve/paged.py`, plain path).
 
 Ported: plain admission, the decode chunk, `occupancy_bundle`, quantized
 page pools (`kv_dtype` native/fp32/bf16/fp16/int8/fp8, pages priced by
-`page_bytes` with int8's scales), `collect_logits`, and speculative
-decoding (`speculate_k`: a draft page lane on the same allocator, draft
-rounds verified by `DecoderLM.verify_step_paged`, rollback by page
-truncation). Not yet ported (the batcher raises `NotImplementedError`):
-prefix caching, chunked prefill, priority preemption, telemetry and the
-energy meter.
+`page_bytes` with int8's scales), `collect_logits`, speculative decoding
+(`speculate_k`: a draft page lane on the same allocator, draft rounds
+verified by `DecoderLM.verify_step_paged`, rollback by page truncation),
+prefix sharing (`prefix_cache`: `serve.prefix`'s radix index, refcounted
+COW pages and dual traces), chunked prefill (`prefill_chunk_tokens`),
+priority admission with preemption, and `on_long_prompt`. Not yet ported
+(the batcher raises `NotImplementedError`): telemetry and the energy meter.
 """
 from __future__ import annotations
 
@@ -30,9 +31,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.quant import kv_dtype_spec
-from repro_torch.models.transformer import (init_paged_cache,
-                                            self_spec_draft,
-                                            write_prefill_to_pages)
+from repro_torch.models.transformer import (
+    _require_pure_full, copy_pages, gather_prefix_pages, init_paged_cache,
+    prefix_tail_rows, self_spec_draft, write_prefill_to_pages,
+    write_shared_prefill_to_pages)
 from repro_torch.serve.scheduler import AdmissionQueue, Request, SchedulerStats
 from repro_torch.sim.trace import AccessStats, OccupancyTrace, TraceBundle
 
@@ -131,7 +133,11 @@ class PagedKVLedger:
             self.trace.event(t, n_pages * self.page_bytes, 0)
         return pages
 
-    def grow(self, slot: int, total_pages: int, t: float) -> List[int]:
+    def grow(self, slot: int, total_pages: int, t: float,
+             cause: str = "decode_growth") -> List[int]:
+        """Extend the slot to `total_pages`. `cause` names the growth as in
+        the reference, where it tags the energy meter's event; the port has
+        no meter yet, so it changes nothing."""
         have = self.slot_pages[slot]
         extra = total_pages - len(have)
         if extra <= 0:
@@ -209,6 +215,11 @@ class PagedStats(SchedulerStats):
     pages_freed: int = 0
     peak_pages: int = 0
     chunks: int = 0
+    # prefix-sharing counters (stay zero without prefix_cache)
+    cow_splits: int = 0
+    evicted_pages: int = 0
+    # chunked-prefill slices executed (zero without prefill_chunk_tokens)
+    prefill_slices: int = 0
     # speculative-decoding counters (stay zero without speculate_k)
     spec_rounds: int = 0
     drafted_tokens: int = 0
@@ -217,21 +228,47 @@ class PagedStats(SchedulerStats):
 
 
 class PagedContinuousBatcher:
-    """FIFO continuous batching over a paged KV cache.
+    """Priority continuous batching over a paged KV cache.
 
-    Admission pops the queue head when a slot is free and the pool can cover
-    its worst-case pages (prompt + max_new_tokens), prefills the prompt once
-    (batch=1) and scatters its KV rows into freshly allocated pages; older
-    slots are never touched. Decode runs in chunks of `chunk_steps` device
-    steps: the liveness mask, remaining budgets and EOS checks stay on the
-    device, and the host syncs once per chunk to collect tokens, retire
-    finished slots, free their pages and admit queued requests.
+    Admission pops the highest-priority queued request (FIFO within a
+    class) when a slot is free and the pool can cover its worst-case pages
+    (prompt + max_new_tokens), prefills the prompt once (batch=1) and
+    scatters its KV rows into freshly allocated pages; older slots are never
+    touched. When the head would otherwise wait (no free slot, or too few
+    pages) it may preempt strictly-lower-priority slots: the victim's pages
+    free through the retire path, its partial output is discarded, and it
+    requeues behind its own class for a re-prefill from scratch. Equal
+    priorities never preempt each other. Decode runs in chunks of
+    `chunk_steps` device steps: the liveness mask, remaining budgets and
+    EOS checks stay on the device, and the host syncs once per chunk to
+    collect tokens, retire finished slots, free their pages and admit
+    queued requests.
 
     `kv_dtype` selects the page storage (`kernels.quant.kv_dtype_spec`):
     the model dtype ("native"), another float dtype, fp8 E4M3 codes, or
     int8 with per-row scales, decoded through `paged_gqa_decode_quant`.
     With `collect_logits` every request also keeps the last-position logits
     of its prefill and of each decode step (`Request.logits`, float32).
+    `on_long_prompt="truncate"` cuts a prompt to what its slot table can
+    hold beside its decode budget; "reject" raises `OutOfPages` at submit.
+
+    Prefix sharing (`prefix_cache=True`): admission probes a
+    `RadixPrefixIndex` with the prompt, maps the matched pages read-only
+    into the slot's table, runs a suffix-only prefill against the gathered
+    prefix KV (`DecoderLM.prefill_shared`, the prefill kernel with a query
+    offset) and caches every admitted run for later requests. The last page
+    of a shared run is copy-on-write split on the first divergent write;
+    unreferenced cached prefixes are LRU-evicted under page pressure. The
+    ledger then emits two Stage-I traces, "kv" (physical: unique referenced
+    pages, cache-resident pages as obsolete) and "kv_logical" (the per-slot
+    demand a non-sharing allocator would pin).
+
+    Chunked prefill (`prefill_chunk_tokens`, a multiple of `page_size`):
+    prompts longer than the chunk admit in page-aligned slices with one
+    decode chunk for the other slots between slices. Slice 0 is a plain
+    prefill; every later slice gathers the slot's own pages and runs the
+    shared prefill. On a prefix hit only the suffix is sliced, the first
+    slice sized to re-align a mid-page match boundary.
 
     Speculative decoding (`speculate_k`, greedy only): a draft model
     proposes `speculate_k` tokens per round through its own draft page lane
@@ -243,7 +280,8 @@ class PagedContinuousBatcher:
     rate. Rejected suffixes roll back by page truncation at chunk
     boundaries (`PagedKVLedger.truncate_rows`), the negative mid-stream
     deltas of the occupancy trace. Without `draft_model` the draft is
-    `self_spec_draft(model, params, skip=2)`.
+    `self_spec_draft(model, params, skip=2)`. With `prefix_cache` the
+    draft lane never shares: a hit only shortens the target's prefill.
 
     Emits the Stage-I artifact at page granularity: `occupancy_bundle()` is
     a `TraceBundle` whose "kv" trace steps in units of `page_bytes`, fed to
@@ -259,8 +297,19 @@ class PagedContinuousBatcher:
                  prefill_tok_s: float = 5e-5, prefix_cache: bool = False,
                  collect_logits: bool = False, kv_dtype: str = "native",
                  prefill_chunk_tokens: Optional[int] = None,
+                 on_long_prompt: str = "reject",
                  speculate_k: Optional[int] = None, draft_model=None,
                  draft_params=None, telemetry=None, meter=None):
+        if on_long_prompt not in ("reject", "truncate"):
+            raise ValueError("on_long_prompt must be 'reject' or 'truncate'")
+        if prefill_chunk_tokens is not None:
+            if prefill_chunk_tokens < page_size or \
+                    prefill_chunk_tokens % page_size:
+                raise ValueError(
+                    "prefill_chunk_tokens must be a positive multiple of "
+                    f"page_size={page_size} so every slice boundary is "
+                    "page-aligned (the chained slice prefill gathers whole "
+                    f"pages); got {prefill_chunk_tokens}")
         if speculate_k is not None:
             if speculate_k < 1:
                 raise ValueError(f"speculate_k must be >= 1, got "
@@ -279,11 +328,8 @@ class PagedContinuousBatcher:
             if (draft_model is None) != (draft_params is None):
                 raise ValueError("pass draft_model and draft_params "
                                  "together (or neither for self-spec)")
-        for name, value, plain in (
-                ("prefix_cache", prefix_cache, False),
-                ("prefill_chunk_tokens", prefill_chunk_tokens, None),
-                ("telemetry", telemetry, None), ("meter", meter, None)):
-            if value != plain:
+        for name, value in (("telemetry", telemetry), ("meter", meter)):
+            if value is not None:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported yet; the port serves "
                     "without it")
@@ -299,6 +345,9 @@ class PagedContinuousBatcher:
         self.chunk_steps = chunk_steps
         self.step_time_s = step_time_s
         self.prefill_tok_s = prefill_tok_s
+        self.prefix_cache = prefix_cache
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.on_long_prompt = on_long_prompt
         self.speculate_k = speculate_k
 
         self.collect_logits = collect_logits
@@ -307,7 +356,14 @@ class PagedContinuousBatcher:
         self.page_bytes = page_bytes(self.cfg, page_size, kv_spec.itemsize,
                                      kv_spec.scale_bytes_per_row)
         self.row_bytes = self.page_bytes // page_size
-        self.ledger = PagedKVLedger(num_pages, self.page_bytes, page_size)
+        if prefix_cache:
+            from repro_torch.serve.prefix import SharedKVLedger
+            self.ledger = SharedKVLedger(
+                num_pages, self.page_bytes, page_size, num_slots=num_slots,
+                max_pages_per_slot=self.max_pages_per_slot)
+        else:
+            self.ledger = PagedKVLedger(num_pages, self.page_bytes,
+                                        page_size)
         self.access = AccessStats()
         self.stats = PagedStats()
 
@@ -322,6 +378,12 @@ class PagedContinuousBatcher:
             self.cfg, num_slots, num_pages, page_size,
             self.max_pages_per_slot, dtype=model.compute_dtype,
             device=self.device, kv_dtype=self.kv_dtype)
+        if prefix_cache or prefill_chunk_tokens is not None:
+            _require_pure_full(self.cfg, "prefix_cache" if prefix_cache
+                               else "prefill_chunk_tokens")
+            # the reference's fixed attention width (its slot capacity);
+            # the port's kernel does not need it (`prefill_shared`)
+            self._pad_to = self.max_pages_per_slot * page_size
         if speculate_k is not None:
             if draft_model is None:
                 draft_model, draft_params = self_spec_draft(model, params,
@@ -356,13 +418,30 @@ class PagedContinuousBatcher:
 
     # ------------------------------------------------------------ client API
     def submit(self, req: Request) -> None:
-        if req.priority != 0:
-            raise NotImplementedError("priority preemption is not ported "
-                                      "yet; submit priority-0 requests")
-        worst = self._worst_pages(int(len(req.tokens)), req.max_new_tokens)
+        S = int(len(req.tokens))
+        cap = self.max_pages_per_slot * self.page_size
+        # speculation writes up to V - 1 = speculate_k rows past the final
+        # accepted context before the last rollback truncates them
+        spec_extra = (self.speculate_k if self.speculate_k is not None
+                      and req.max_new_tokens > 1 else 0)
+        if S + max(req.max_new_tokens - 1, 0) + spec_extra > cap \
+                and self.on_long_prompt == "truncate":
+            # keep the decode budget, give the prompt whatever table
+            # capacity remains (mirrors the dense batcher's max_len cut)
+            keep = cap - max(req.max_new_tokens - 1, 0) - spec_extra
+            if keep >= 1:
+                req.tokens = np.asarray(req.tokens)[:keep]
+                S = keep
+        worst = self._worst_pages(S, req.max_new_tokens)
         # speculation doubles the lanes: the draft mirrors the target's page
-        # demand row for row (same page_size, its own page_bytes)
-        pool_worst = worst * self._lanes
+        # demand row for row (same page_size, its own page_bytes). Prefix
+        # mode keeps one more pool page back for the deferred COW split of
+        # a mid-page prompt boundary: it never takes a table entry (COW
+        # swaps one in place), but it must fit the pool, or admission could
+        # wait forever on a demand no drain can meet
+        pool_worst = worst * self._lanes + (
+            1 if self.prefix_cache and S % self.page_size
+            and req.max_new_tokens > 1 else 0)
         if worst > self.max_pages_per_slot or pool_worst > self.num_pages - 1:
             raise OutOfPages(
                 f"request {req.rid} needs {worst} table / {pool_worst} pool "
@@ -382,11 +461,21 @@ class PagedContinuousBatcher:
         return done
 
     def occupancy_bundle(self) -> TraceBundle:
-        """Page-granular Stage-II view: feed to explorer.sweep() unchanged."""
-        return TraceBundle(graph_name=f"{self.cfg.name}-paged-serve",
+        """Page-granular Stage-II view: feed to explorer.sweep() unchanged.
+
+        With `prefix_cache` the bundle carries both traces: "kv" is the
+        physical occupancy (unique referenced pages as needed, cached pages
+        as obsolete, what Stage II should gate against) and "kv_logical"
+        the per-slot demand a non-sharing allocator would pin; their gap is
+        the headroom sharing frees."""
+        traces = {"kv": self.ledger.trace}
+        name = f"{self.cfg.name}-paged-serve"
+        if self.prefix_cache:
+            traces["kv_logical"] = self.ledger.logical
+            name = f"{self.cfg.name}-prefix-serve"
+        return TraceBundle(graph_name=name,
                            total_time=max(self._sim_t, self.step_time_s),
-                           traces={"kv": self.ledger.trace},
-                           access=self.access)
+                           traces=traces, access=self.access)
 
     # ------------------------------------------------------------- internals
     def _available_pages(self) -> int:
@@ -404,41 +493,105 @@ class PagedContinuousBatcher:
     def _lanes(self) -> int:
         return 2 if self.speculate_k is not None else 1
 
-    def _retire(self, i: int, req: Request, done: List[Request],
-                t: float) -> None:
-        req.finished_wall_s = time.perf_counter()
-        req.finished_s = t
-        done.append(req)
+    def _release_slot(self, i: int, t: float) -> None:
+        """Free slot `i`'s pages (both lanes) and clear its host mirrors;
+        shared by retirement and preemption."""
         self.slots[i] = None
         n = self.ledger.retire(i, t)
         self.stats.pages_freed += n
         self.stats.retired_kv_bytes += n * self.page_bytes
-        self.stats.finished += 1
         self._reserved[i] = 0
         self._ctx[i] = 0
         self._table[i, :] = 0
         if self.speculate_k is not None:
             self._draft_table[i, :] = 0
 
+    def _retire(self, i: int, req: Request, done: List[Request],
+                t: float) -> None:
+        req.finished_wall_s = time.perf_counter()
+        req.finished_s = t
+        done.append(req)
+        self._release_slot(i, t)
+        self.stats.finished += 1
+
+    def _preempt_victim(self, priority: int) -> Optional[int]:
+        """The slot to evict for a `priority`-class admission: the
+        lowest-priority active slot strictly below the admitting class
+        (equal classes never preempt each other, so no livelock), least
+        decode progress first within a class (least work discarded)."""
+        best = None
+        best_key = None
+        for i, r in enumerate(self.slots):
+            if r is None or r.priority >= priority:
+                continue
+            key = (r.priority, len(r.output))
+            if best is None or key < best_key:
+                best, best_key = i, key
+        return best
+
+    def _preempt(self, i: int, t: float) -> None:
+        """Evict slot `i` and requeue its request. Pages return through the
+        ordinary retire path (the occupancy trace stays conservative); the
+        partial output is discarded and the prompt re-prefills from scratch
+        on re-admission: a greedy restart reproduces the uncontended
+        tokens, where resuming mid-decode would not (the prefill's
+        reduction order differs from the decode kernel's)."""
+        req = self.slots[i]
+        req.output.clear()
+        req.logits.clear()
+        req.preemptions += 1
+        self._release_slot(i, t)
+        self.stats.preemptions += 1
+        self.queue.push(req)     # fresh seq: re-enters behind its own class
+
+    def _preempt_for(self, priority: int, worst: int) -> bool:
+        """Free pages for a `priority`-class admission by preempting
+        strictly-lower-priority slots, lowest class / least progress first.
+        Returns False when eligible victims run out before `worst` pages
+        are coverable (the head then waits as before)."""
+        while worst > self._available_pages():
+            v = self._preempt_victim(priority)
+            if v is None:
+                return False
+            self._preempt(v, self._sim_t)
+        return True
+
+    def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens)[None, :], dtype=torch.long,
+                               device=self.device)
+
     def _admit(self, done: List[Request]) -> None:
         while self.queue:
             i = next((k for k, s in enumerate(self.slots) if s is None), None)
             if i is None:
-                break
+                # every slot is busy: a strictly-higher-priority head may
+                # evict the lowest-priority slot instead of queueing
+                v = self._preempt_victim(self.queue.peek().priority)
+                if v is None:
+                    break
+                self._preempt(v, self._sim_t)
+                continue
+            if self.prefix_cache:
+                if not self._admit_prefix(i, done):
+                    break                  # wait for pages to free up
+                continue
             req = self.queue.peek()
             prompt_len = int(len(req.tokens))
             worst = self._worst_pages(prompt_len, req.max_new_tokens) \
                 * self._lanes
-            if worst > self._available_pages():
+            if worst > self._available_pages() \
+                    and not self._preempt_for(req.priority, worst):
                 break                      # wait for pages to free up
             self.queue.pop()
+            if (self.prefill_chunk_tokens is not None
+                    and prompt_len > self.prefill_chunk_tokens):
+                self._admit_chunked(i, req, done, worst)
+                continue
             npg = pages_for(prompt_len, self.page_size)
             t_pre = self._sim_t
-            tokens = torch.as_tensor(np.asarray(req.tokens)[None, :],
-                                     dtype=torch.long, device=self.device)
-            logits, dense = self.model.prefill(self.params,
-                                               {"tokens": tokens},
-                                               npg * self.page_size)
+            logits, dense = self.model.prefill(
+                self.params, {"tokens": self._tokens(req.tokens)},
+                npg * self.page_size)
             tok = int(torch.argmax(logits[0, -1]))
             self._sim_t += prompt_len * self.prefill_tok_s
             pages = self.ledger.admit(i, npg, self._sim_t)
@@ -453,11 +606,179 @@ class PagedContinuousBatcher:
             self._commit_admission(i, req, done, tok, logits, prompt_len,
                                    pages, t_pre)
 
+    def _slice_prefill(self, i: int, tokens: np.ndarray, pos: int):
+        """A later slice of a chunked admission: gather slot `i`'s own
+        resident pages (its first `pos` rows, `pos` page-aligned), prefill
+        `tokens` against them with the query offset `pos`, grow the slot by
+        the pages the slice fills and write its KV there. Returns the
+        logits and the number of fresh pages."""
+        held = list(self.ledger.slot_pages[i])
+        prefix = gather_prefix_pages(self.cfg, self._cache, held, pos)
+        head = prefix_tail_rows(prefix, 0)          # pos is page-aligned
+        logits, suffix = self.model.prefill_shared(
+            self.params, {"tokens": self._tokens(tokens)}, prefix,
+            pad_to=self._pad_to)
+        self._sim_t += len(tokens) * self.prefill_tok_s
+        fresh = self.ledger.grow(i, pages_for(pos + len(tokens),
+                                              self.page_size),
+                                 self._sim_t, cause="admission")
+        self._reserved[i] -= len(fresh)
+        write_shared_prefill_to_pages(self.cfg, self._cache, suffix, head, i,
+                                      held, fresh)
+        return logits, len(fresh)
+
+    def _count_slice(self, take: int, new_n: int) -> None:
+        self.stats.pages_allocated += new_n
+        self.stats.admitted_kv_bytes += new_n * self.page_bytes
+        self.stats.peak_pages = max(self.stats.peak_pages,
+                                    self.ledger.allocator.n_allocated)
+        self.access.add_write("kv", take * self.row_bytes)
+
+    def _admit_chunked(self, i: int, req: Request, done: List[Request],
+                       worst: int) -> None:
+        """Chunked prefill: admit `req` into slot `i` in page-aligned
+        slices of `prefill_chunk_tokens`, running one decode chunk for the
+        other active slots between consecutive slices, so a long prompt no
+        longer stalls their token cadence. Slice 0 is a plain prefill;
+        every later slice gathers the slot's own pages as a prefix and runs
+        the shared prefill. The slot stays invisible to the decode loop
+        (host `active` mask) until the last slice commits; the page
+        reservation made up front keeps interleaved chunks from taking this
+        slot's worst-case pages."""
+        prompt = np.asarray(req.tokens)
+        S = int(len(prompt))
+        ps = self.page_size
+        C = self.prefill_chunk_tokens
+        t_pre = self._sim_t
+        pos = 0
+        logits = None
+        while pos < S:
+            take = min(C, S - pos)
+            if pos == 0:
+                new_n = pages_for(take, ps)
+                logits, dense = self.model.prefill(
+                    self.params, {"tokens": self._tokens(prompt[:take])},
+                    new_n * ps)
+                self._sim_t += take * self.prefill_tok_s
+                pages = self.ledger.admit(i, new_n, self._sim_t)
+                self._reserved[i] = worst - new_n
+                write_prefill_to_pages(self.cfg, self._cache, dense, i,
+                                       torch.as_tensor(pages,
+                                                       dtype=torch.int32))
+            else:
+                logits, new_n = self._slice_prefill(
+                    i, prompt[pos:pos + take], pos)
+            self._count_slice(take, new_n)
+            self.stats.prefill_slices += 1
+            pos += take
+            if pos < S:
+                # let the active slots stream tokens before the next slice
+                self._decode_chunk(done)
+        tok = int(torch.argmax(logits[0, -1]))
+        self._commit_admission(i, req, done, tok, logits, S,
+                               self.ledger.slot_pages[i], t_pre)
+
+    def _admit_prefix(self, i: int, done: List[Request]) -> bool:
+        """Prefix-cache admission of the queue head into slot `i`.
+
+        Returns False when the pool (after LRU-evicting cached prefixes and
+        preempting strictly-lower-priority slots) still cannot cover the
+        request's worst-case fresh page demand; the head then waits. The
+        worst case reserves the pages the match did not cover, plus one
+        page for the deferred COW split of a mid-page prompt boundary."""
+        req = self.queue.peek()
+        prompt = np.asarray(req.tokens)
+        S = int(len(prompt))
+        ps = self.page_size
+        worst_total = self._worst_pages(S, req.max_new_tokens)
+        cow_extra = 1 if (S % ps and req.max_new_tokens > 1) else 0
+        # the draft lane never shares: a hit only shortens the target's
+        # prefill, the draft's full worst case is fresh demand
+        draft_extra = worst_total if self.speculate_k is not None else 0
+
+        def demand(match):
+            return (worst_total - len(match.pages) + cow_extra
+                    + draft_extra)
+
+        match = self.ledger.index.probe(prompt, limit=S - 1)
+        short = demand(match) - self._available_pages()
+        while short > 0:
+            freed = self.ledger.evict_for(short, self._sim_t)
+            if freed:
+                self.stats.evicted_pages += freed
+            else:
+                # nothing cached left to drop: preempt a lower-priority
+                # slot before giving up (pages free via the retire path)
+                v = self._preempt_victim(req.priority)
+                if v is None:
+                    return False
+                self._preempt(v, self._sim_t)
+            # eviction or preemption may have changed the matched path
+            match = self.ledger.index.probe(prompt, limit=S - 1)
+            short = demand(match) - self._available_pages()
+        self.queue.pop()
+
+        n_full, j = len(match.pages), match.tail_tokens
+        m = n_full * ps + j
+        t_pre = self._sim_t
+        C = self.prefill_chunk_tokens
+        suffix_len = S - m
+        if C is not None and suffix_len > C:
+            # chunk the suffix: slice 0 re-aligns the (possibly mid-page)
+            # match boundary to a page multiple, so every later slice
+            # boundary is page-aligned
+            slices = [min(C - (m % ps), suffix_len)]
+            while sum(slices) < suffix_len:
+                slices.append(min(C, suffix_len - sum(slices)))
+        else:
+            slices = [suffix_len]
+
+        pos = m
+        logits = None
+        for si, take in enumerate(slices):
+            if si == 0:
+                gather_ids = list(match.pages) + \
+                    ([match.tail_page] if j else [])
+                prefix = gather_prefix_pages(self.cfg, self._cache,
+                                             gather_ids, m)
+                head = prefix_tail_rows(prefix, j)
+                logits, suffix = self.model.prefill_shared(
+                    self.params, {"tokens": self._tokens(prompt[m:m + take])},
+                    prefix, pad_to=self._pad_to)
+                self._sim_t += take * self.prefill_tok_s  # suffix only
+                new_n = pages_for(m + take, ps) - n_full
+                fresh = self.ledger.admit(i, new_n, self._sim_t,
+                                          shared=match.pages)
+                self._reserved[i] = demand(match) - new_n
+                write_shared_prefill_to_pages(self.cfg, self._cache, suffix,
+                                              head, i, match.pages, fresh)
+            else:
+                logits, new_n = self._slice_prefill(
+                    i, prompt[pos:pos + take], pos)
+            self._count_slice(take, new_n)
+            if len(slices) > 1:
+                self.stats.prefill_slices += 1
+            pos += take
+            if pos < S:
+                # let the active slots stream tokens before the next slice
+                self._decode_chunk(done)
+        tok = int(torch.argmax(logits[0, -1]))
+        if m:
+            self.stats.prefix_hits += 1
+            self.stats.prefix_tokens_reused += m
+        # cache this run for later requests (the index refs its pages)
+        self.ledger.insert_run(prompt, self.ledger.slot_pages[i], self._sim_t)
+        self._commit_admission(i, req, done, tok, logits, S,
+                               self.ledger.slot_pages[i], t_pre)
+        return True
+
     def _commit_admission(self, i: int, req: Request, done: List[Request],
                           tok: int, logits: torch.Tensor, ctx: int,
                           table_pages: List[int], t_pre: float) -> None:
         """Host mirrors, stats, the prefill-produced first token, and the
-        immediate retire when that token already satisfies the request."""
+        immediate retire when that token already satisfies the request
+        (`t_pre`, the sim time before the prefill, is the reference's span
+        start; the port records no spans yet)."""
         self.slots[i] = req
         self._ctx[i] = ctx
         self._next_tok[i] = tok
@@ -479,7 +800,8 @@ class PagedContinuousBatcher:
 
     def _admit_draft_lane(self, i: int, req: Request) -> None:
         """Prefill the draft model over the full prompt into the slot's
-        draft page lane."""
+        draft page lane. The draft never shares pages (no radix entry, no
+        COW): a prefix hit only shortens the target's prefill."""
         prompt = np.asarray(req.tokens)
         S = int(len(prompt))
         dn = pages_for(S, self.page_size)
@@ -488,10 +810,8 @@ class PagedContinuousBatcher:
         self._reserved[i] -= dn
         self._draft_table[i, :] = 0
         self._draft_table[i, :dn] = dpages
-        tokens = torch.as_tensor(prompt[None, :], dtype=torch.long,
-                                 device=self.device)
         _, ddense = self.draft_model.prefill(self.draft_params,
-                                             {"tokens": tokens},
+                                             {"tokens": self._tokens(prompt)},
                                              dn * self.page_size)
         write_prefill_to_pages(self.draft_model.cfg, self._draft_cache,
                                ddense, i,
@@ -501,6 +821,29 @@ class PagedContinuousBatcher:
                                     self.ledger.allocator.n_allocated)
         self.stats.admitted_kv_bytes += dn * self.draft_page_bytes
         self.access.add_write("kv", S * self.draft_row_bytes)
+
+    def _cow_for_chunk(self, i: int, steps_i: int, t: float) -> None:
+        """Copy-on-write split every shared page this chunk will write.
+
+        Decode appends rows [ctx, ctx + steps_i); only the page holding the
+        prompt's mid-page boundary can be shared (with the prefix index, or
+        with slots that mapped the same run), so at most one split fires per
+        slot, but the scan covers the whole range. The reservation made at
+        admission covers the extra page, so `alloc` cannot fail."""
+        ps = self.page_size
+        ctx = int(self._ctx[i])
+        pages = self.ledger.slot_pages[i]
+        first, last = ctx // ps, (ctx + steps_i - 1) // ps
+        for idx in range(first, min(last + 1, len(pages))):
+            page = pages[idx]
+            if self.ledger.allocator.refcount(page) <= 1:
+                continue
+            new = self.ledger.cow(i, idx, t)
+            copy_pages(self.cfg, self._cache, page, new)
+            self._table[i, idx] = new
+            self._reserved[i] -= 1
+            self.stats.cow_splits += 1
+            self.stats.pages_allocated += 1
 
     def _decode_loop(self, tok: torch.Tensor, eos: torch.Tensor,
                      remaining: torch.Tensor):
@@ -578,6 +921,8 @@ class PagedContinuousBatcher:
             remaining[i] = req.max_new_tokens - len(req.output)
             steps_i = min(self.chunk_steps, int(remaining[i]))
             self._grow(i, int(self._ctx[i]) + steps_i, t0)
+            if self.prefix_cache:
+                self._cow_for_chunk(i, steps_i, t0)
         self.stats.peak_pages = max(self.stats.peak_pages,
                                     self.ledger.allocator.n_allocated)
 
@@ -698,8 +1043,12 @@ class PagedContinuousBatcher:
             # worst rows this chunk can touch: every round writes V rows at
             # pos .. pos + V - 1 and advances >= 1, and the last active round
             # starts with >= 1 token remaining
-            self._grow(i, int(self._ctx[i])
-                       + min(R * V, int(remaining[i]) + V - 1), t0)
+            rows = min(R * V, int(remaining[i]) + V - 1)
+            self._grow(i, int(self._ctx[i]) + rows, t0)
+            if self.prefix_cache:
+                # the verify window writes past ctx: COW every shared page
+                # in the whole speculative write range, not just chunk_steps
+                self._cow_for_chunk(i, rows, t0)
         self.stats.peak_pages = max(self.stats.peak_pages,
                                     self.ledger.allocator.n_allocated)
 

@@ -77,8 +77,12 @@ class Request:
     tokens: np.ndarray                 # (prompt_len,)
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
-    # admission class: higher admits first (FIFO within a class)
+    # admission class: higher admits first; on the paged batcher a queued
+    # higher-priority request may preempt a lower-priority active slot
+    # instead of waiting (ties decode FCFS)
     priority: int = 0
+    # billing identity for per-tenant attribution (None = untagged)
+    tenant: Optional[str] = None
     # filled by the scheduler
     output: List[int] = field(default_factory=list)
     # per-token last-position logits, filled only by batchers running with
@@ -91,6 +95,8 @@ class Request:
     finished_s: float = 0.0
     submitted_wall_s: float = 0.0
     finished_wall_s: float = 0.0
+    # times this request was preempted and requeued (paged batcher only)
+    preemptions: int = 0
 
     @property
     def latency_s(self) -> float:
@@ -104,7 +110,9 @@ class Request:
 
 class AdmissionQueue:
     """Priority admission queue: descending `Request.priority`, FIFO within
-    a class."""
+    a class. A request requeued after preemption re-enters at the back of
+    its class (a fresh sequence number), so a preempt/re-admit cycle cannot
+    starve its peers."""
 
     def __init__(self):
         self._heap: List = []
@@ -132,9 +140,13 @@ class SchedulerStats:
     finished: int = 0
     decode_steps: int = 0
     prefills: int = 0
+    preemptions: int = 0
     peak_active_slots: int = 0
     admitted_kv_bytes: int = 0
     retired_kv_bytes: int = 0
+    # prefix-cache reuse (stays zero on engines without a prefix index)
+    prefix_hits: int = 0
+    prefix_tokens_reused: int = 0
 
 
 class ContinuousBatcher:

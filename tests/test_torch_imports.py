@@ -1,7 +1,8 @@
 """The port stands alone: no module of `repro_torch`, and not
 `chip_smoke.py`, imports JAX or the JAX package `repro`, and the package
-imports and runs a CPU prefill + paged decode step, and a Stage-I decode
-horizon swept in Stage II, with JAX made unimportable."""
+imports and runs a CPU prefill + paged decode step, a Stage-I decode
+horizon swept in Stage II, and a prefix-cached, chunked serve of
+shared-prefix traffic, with JAX made unimportable."""
 import ast
 import os
 import subprocess
@@ -67,6 +68,16 @@ from repro_torch.sim.pss import simulate_decode
 sim = simulate_decode(cfg, baseline_accelerator(8), start_ctx=16, steps=8,
                       batch=2, subops=2, fidelity="pss")
 assert sweep(sim, capacities_mib=[1], banks=(1, 4), device="cpu").rows
+import repro_torch.examples.prefix_serving
+from repro_torch.serve import PagedContinuousBatcher, Request
+from repro_torch.traffic import chat_sysprompt, materialize_tokens
+specs = chat_sysprompt(4.0, 2.0, seed=0, prefix_len=20, sharing=4)[:3]
+cb = PagedContinuousBatcher(m, p, num_slots=2, page_size=8, num_pages=24,
+                            max_pages_per_slot=11, chunk_steps=4,
+                            prefix_cache=True, prefill_chunk_tokens=16)
+for s, t in zip(specs, materialize_tokens(specs, cfg.vocab_size)):
+    cb.submit(Request(rid=s.rid, tokens=t[:80], max_new_tokens=3))
+assert len(cb.run()) == 3 and cb.stats.prefix_hits >= 1
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print("ok")

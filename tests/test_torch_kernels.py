@@ -343,6 +343,40 @@ def test_flash_tensor_core_kernel_on_card(H, K, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_kernels_with_query_offset_on_card(dtype):
+    """Both prefill kernels with a query offset (the suffix rows of a
+    shared or chunked prefill): at offsets 0, 16, 21 and 384 and suffixes
+    of 1, 37 and 256 rows, within the kernel's tolerance of the float32
+    plain version (bf16: 1e-2 and its mirror with the offset within one
+    bf16 step plus MIRROR_ATOL; float32: 2e-5), and every row equal to
+    row m + s of the offset-0 call over the same keys, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import (
+        MIRROR_ATOL, bf16_excess, flash_attention_bf16_mirror_ref, variant)
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(21)
+    H, K, d, T = 12, 2, 128, 384 + 256
+    q_all, k, v = (torch.from_numpy(rng.standard_normal((1, T, h, d)).astype(
+        np.float32)).to("cuda", dt) for h in (H, K, K))
+    assert variant(q_all) == ("tensor-core" if dtype == "bfloat16"
+                              else "cuda-core")
+    for m in (0, 16, 21, 384):
+        for S in (1, 37, 256):
+            q, kk, vv = q_all[:, m:m + S], k[:, :m + S], v[:, :m + S]
+            got = flash_attention(q, kk, vv, q_offset=m)
+            whole = flash_attention(q_all[:, :m + S], kk, vv)
+            assert torch.equal(got, whole[:, m:]), (m, S)
+            ref = flash_attention_ref(q.float(), kk.float(), vv.float(), m)
+            tol = 1e-2 if dtype == "bfloat16" else ATOL
+            assert (got.float() - ref).abs().max().item() <= tol, (m, S)
+            if dtype == "bfloat16":
+                mirror = flash_attention_bf16_mirror_ref(q, kk, vv, m)
+                assert bf16_excess(got, mirror) <= MIRROR_ATOL, (m, S)
+
+
+@pytest.mark.gpu
 def test_split_decode_kernel_on_card():
     """`gqa_decode`'s split path against the plain version and the split
     mirror at B 8 and B 1 (float32 2e-5, bf16 1e-2), through the (B, K, T,

@@ -97,10 +97,13 @@ def test_access_stats_are_identical(served):
 
 
 def test_unported_options_raise():
+    """What the port still refuses: telemetry, the energy meter, and (as the
+    reference does, in the same words) speculation on int8 pages. Prefix
+    caching, chunked prefill and priorities are ported and construct
+    (their parity is `test_torch_prefix*.py` and `test_torch_sla*.py`)."""
     cfg = tconfigs.reduced(tconfigs.get_arch("gpt2-xl"), layers=2)
     m = DecoderLM(cfg, compute_dtype=torch.float32, device="cpu")
-    for kw in (dict(prefix_cache=True), dict(prefill_chunk_tokens=8),
-               dict(speculate_k=2, kv_dtype="int8"), dict(telemetry=object()),
+    for kw in (dict(speculate_k=2, kv_dtype="int8"), dict(telemetry=object()),
                dict(meter=object())):
         with pytest.raises(NotImplementedError):
             PagedContinuousBatcher(m, {}, **kw, **GEOMETRY)
@@ -109,9 +112,14 @@ def test_unported_options_raise():
                                **GEOMETRY)
     with pytest.raises(ValueError, match="kv_dtype"):
         PagedContinuousBatcher(m, {}, kv_dtype="int4", **GEOMETRY)
+    with pytest.raises(ValueError, match="multiple of"):
+        PagedContinuousBatcher(m, {}, prefill_chunk_tokens=5, **GEOMETRY)
+    for kw in (dict(prefix_cache=True), dict(prefill_chunk_tokens=8)):
+        tb = PagedContinuousBatcher(m, {}, **kw, **GEOMETRY)
+        assert tb.prefix_cache == kw.get("prefix_cache", False)
     tb = PagedContinuousBatcher(m, {}, **GEOMETRY)
-    with pytest.raises(NotImplementedError):
-        tb.submit(Request(rid=0, tokens=np.arange(4), priority=1))
+    tb.submit(Request(rid=0, tokens=np.arange(4), priority=1))
+    assert len(tb.queue) == 1
     with pytest.raises(OutOfPages):
         tb.submit(Request(rid=1, tokens=np.arange(70), max_new_tokens=1))
 

@@ -268,9 +268,12 @@ def test_spec_validation_matches_the_reference(small4):
     with pytest.raises(ValueError, match="together"):
         PagedContinuousBatcher(tm, tparams, speculate_k=2, draft_model=draft,
                                **GEOMETRY)
-    with pytest.raises(NotImplementedError, match="prefix_cache"):
-        PagedContinuousBatcher(tm, tparams, speculate_k=2, prefix_cache=True,
-                               **GEOMETRY)
+    # speculation composes with the prefix cache, as in the reference (its
+    # parity is tests/test_torch_prefix_spec.py): the draft lane rides the
+    # shared ledger
+    cb = PagedContinuousBatcher(tm, tparams, speculate_k=2, prefix_cache=True,
+                                **GEOMETRY)
+    assert cb.ledger.draft_page_bytes == cb.draft_page_bytes
     cache = init_paged_cache(tm.cfg, 1, 4, 8, 2, dtype=torch.float32,
                              device="cpu", kv_dtype="int8")
     with pytest.raises(NotImplementedError, match="int8 KV pages"):
