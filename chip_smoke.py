@@ -18,7 +18,14 @@ priority-1 arrivals that preempt, in a pool small enough to evict cached
 prefixes, whose physical ("kv") and logical ("kv_logical") traces are
 both swept (`serve_prefix`), after the same mechanisms on a 2-layer model
 held to the CPU plain path on native, int8 and fp8 pages and with
-speculation (`reference_prefix`). It builds the
+speculation (`reference_prefix`); the traffic campaigns of
+`launch/traffic.py` (plain traffic with a streamed bank-energy meter,
+shared-prefix traffic, speculative decoding; gpt2-xl beside dsr1d), their
+Stage-II legs on the card held to the same campaigns on the CPU, then the
+CLI once (`traffic`); and the prefix-cached serve again with a telemetry
+registry and a streamed meter, held to the same serve without them, to a
+CPU dry run of its counters, spans and SLO percentiles, and to Stage II
+on its trace (`serve_obs`). It builds the
 CUDA kernels from `src/repro_torch/csrc/` first, holds every kernel against
 its plain PyTorch version at its path's shapes, and checks that each path
 launched its kernels (launch counts are set to 0 just before a path and
@@ -44,7 +51,8 @@ to np.cumsum bit for bit; both bank kernels give the same bits twice.
 The bank kernels are also timed at each decode horizon's own shape.
 Each phase prints one JSON line (device, kernels, reference,
 reference_prefix, serve, stage2, bank_kernels, serve_quant, stage2_quant,
-int8_ffn, serve_spec, serve_dense, serve_prefix, stage1); the last three
+int8_ffn, serve_spec, serve_dense, serve_prefix, traffic, serve_obs,
+stage1); the last three
 lines are the kernel summary, the card's `nvidia-smi` name and power
 limit, then
 
@@ -138,6 +146,21 @@ FLASH_OFFSETS, FLASH_SUFFIXES = (0, 16, 21, 384), (1, 37, 256)
 PREFIX_REQUESTS, PREFIX_CHUNK = 16, 256
 PREFIX_POOL_PAGES = SLOTS * 15 + 1
 URGENT, URGENT_LEN = 4, 512
+# traffic campaigns as `python -m repro_torch.launch.traffic --prune` runs
+# them by default (the requested GQA model beside the gpt2-xl MHA
+# reference, poisson at 4/s over 30 s, seed 0, 8 slots, max_len 1024, the
+# default banks, alpha 0.9): plain traffic with the obs CLI's default meter,
+# shared-prefix traffic and speculative decoding, one simulator each
+TRAFFIC_ARCHS = ("gpt2-xl", "dsr1d-qwen-1.5b")
+TRAFFIC = dict(arrivals=("poisson",), rates=(4.0,), seeds=(0,),
+               horizon_s=30.0, num_slots=8, max_len=1024, prune=True)
+CAMPAIGNS = {"plain": dict(meter_spec="32,8,0.9,conservative"),
+             "chat_sysprompt": dict(workload="chat_sysprompt"),
+             "spec_k4": dict(speculate_k=4)}
+# the instrumented serve: the serve_prefix configuration, its first 8
+# requests with 32 new tokens each, a registry and a streamed meter
+OBS_REQUESTS, OBS_NEW_TOKENS = 8, 32
+OBS_METER = "64,16,0.9,conservative"
 
 
 def emit(phase: str, **fields) -> None:
@@ -1221,6 +1244,325 @@ def serve_prefix(model, params) -> tuple:
     return fields, counts
 
 
+# ------------------------------------------------------ traffic and telemetry
+def _plain(x):
+    """Dataclasses as nested dicts, arrays as lists: the rows of a campaign
+    as comparable plain values."""
+    import dataclasses
+    if dataclasses.is_dataclass(x):
+        return {f.name: _plain(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    return x
+
+
+def _rel_close(a, b, rtol: float) -> bool:
+    """Plain values equal, floats within `rtol` relative."""
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_rel_close(a[k], b[k], rtol)
+                                              for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_rel_close(x, y, rtol)
+                                        for x, y in zip(a, b))
+    if isinstance(a, float) and a != b:
+        return abs(a - b) <= rtol * max(abs(a), abs(b))
+    return a == b
+
+
+def traffic_phase() -> tuple:
+    """The traffic campaigns of `CAMPAIGNS` (`run_campaign`, host
+    simulators, Stage II on the device) on the card and on the CPU, launch
+    counts set to 0 just before the card's and read just after. Every row
+    must agree: the online legs exactly, the offline (oracle, no-gating)
+    legs within rel 1e-12, the metered report exactly. Then the CLI once on
+    the card. Returns (the phase's fields, the card's launch counts)."""
+    import tempfile
+    from repro_torch.core.explorer import DEFAULT_BANKS
+    from repro_torch.kernels import build
+    from repro_torch.traffic import run_campaign
+    runs = {}
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        reports, wall = {}, {}
+        if dev == "cuda":
+            build.reset_launch_counts()
+            torch.cuda.synchronize()
+        for tag, kw in CAMPAIGNS.items():
+            t0 = time.perf_counter()
+            reports[tag] = run_campaign(TRAFFIC_ARCHS, device=dev,
+                                        **TRAFFIC, **kw)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall[tag] = time.perf_counter() - t0
+        if dev == "cuda":
+            counts = build.launch_counts()
+        runs[dev] = (reports, wall)
+    card, cpu = runs["cuda"][0], runs["cpu"][0]
+    out = {}
+    for tag in CAMPAIGNS:
+        a, b = _plain(card[tag].rows), _plain(cpu[tag].rows)
+        check(len(a) == len(b) > 0, f"traffic {tag}: rows on both devices")
+        for ra, rb in zip(a, b):
+            ca, cb_ = ra.pop("comparison"), rb.pop("comparison")
+            check(ra == rb, f"traffic {tag}: row fields equal "
+                  f"({ra['scenario']['arch']} C {ra['capacity_mib']} "
+                  f"B {ra['banks']})")
+            check(ca["online"] == cb_["online"]
+                  and ca["forecast"] == cb_["forecast"],
+                  f"traffic {tag}: online legs equal")
+            check(all(_rel_close(ca[leg], cb_[leg], 1e-12)
+                      for leg in ("oracle", "none")),
+                  f"traffic {tag}: offline legs within rel 1e-12")
+        rel = max(abs(r.comparison.oracle.e_total
+                      / s.comparison.oracle.e_total - 1.0)
+                  for r, s in zip(card[tag].rows, cpu[tag].rows))
+        sims = {}
+        for (arch, _), sim in sorted(card[tag].sims.items()):
+            util = [r for r in card[tag].rows if r.scenario.arch == arch][0]
+            sims[arch] = dict(
+                requests=sim.stats.finished,
+                segments=len(sim.trace.occupancy_series(sim.total_time)[0]),
+                peak_mib=util.peak_mib, mean_mib=util.mean_mib)
+        best = {r.scenario.arch: dict(capacity_mib=r.capacity_mib,
+                                      banks=r.banks,
+                                      e_online_j=r.e_online,
+                                      e_oracle_j=r.e_oracle,
+                                      e_none_j=r.e_none)
+                for r in card[tag].best_per_scenario()}
+        energy = card[tag].rows[0].energy
+        out[tag] = dict(rows=len(a), sims=sims, best=best,
+                        oracle_e_total_rel_err=rel,
+                        wall_s_card=runs["cuda"][1][tag],
+                        wall_s_cpu=runs["cpu"][1][tag],
+                        **({} if energy is None else {"meter": dict(
+                            e_total_j=energy.result.e_total,
+                            wakes=energy.wakes,
+                            j_per_request=list(energy.j_per_request))}))
+    launched = {k: counts[k] for k in ("running_time", "exact_bank_stats",
+                                       "bank_energy")}
+    check(launched["exact_bank_stats"] > 0 and launched["bank_energy"] > 0,
+          f"traffic: the campaigns launched kernels 3 and 4 ({launched})")
+    with tempfile.TemporaryDirectory() as tmp:
+        report = Path(tmp) / "traffic.json"
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.traffic", "--json",
+             str(report)], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ,
+                 "PYTHONPATH": str(Path(__file__).resolve().parent / "src")})
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0,
+              f"traffic CLI exit {cli.returncode}: {cli.stderr[-2000:]}")
+        cli_rows = json.loads(report.read_text())["rows"]
+    check(len(cli_rows) > 0 and {r["arch"] for r in cli_rows}
+          == set(TRAFFIC_ARCHS), "traffic CLI rows of both models")
+    fields = dict(archs=list(TRAFFIC_ARCHS), banks=list(DEFAULT_BANKS),
+                  alpha=0.9, **TRAFFIC, campaigns=out, launches=launched,
+                  traffic_cli=dict(argv="--json", exit=0, wall_s=cli_s,
+                                   rows=len(cli_rows)))
+    return fields, launched
+
+
+def obs_stream(vocab: int):
+    """The serve_prefix configuration's first OBS_REQUESTS requests (seeded
+    chat_sysprompt traffic, 384-token system prompts), with each tenant's
+    name: [(tokens, tenant)]."""
+    from repro_torch.traffic import (LengthModel, generate_workload,
+                                     materialize_tokens)
+    specs = generate_workload("chat_sysprompt", rate=4.0, horizon_s=8.0,
+                              seed=SEED, lengths=LengthModel(
+                                  prompt_mean=128, prompt_sigma=0.5,
+                                  output_mean=64, max_len=1024),
+                              prefix_len=384, sharing=4)[:OBS_REQUESTS]
+    toks = materialize_tokens(specs, vocab, seed=SEED)
+    return [(t, f"tenant{s.prefix_id}") for s, t in zip(specs, toks)]
+
+
+def obs_serve(model, params, stream, instrumented: bool):
+    """Serve `stream` through the serve_prefix geometry, with an enabled
+    registry and the OBS_METER meter when `instrumented`. Returns (batcher,
+    finished requests by rid, registry, meter, wall seconds, launch
+    counts)."""
+    from repro_torch.kernels import build
+    from repro_torch.obs import BankEnergyMeter, Telemetry
+    from repro_torch.serve import PagedContinuousBatcher, Request
+    from repro_torch.serve.paged import pages_for
+    per_slot = pages_for(max(len(t) for t, _ in stream) + OBS_NEW_TOKENS - 1,
+                         PAGE_SIZE)
+    tel = Telemetry(enabled=True) if instrumented else None
+    meter = BankEnergyMeter.from_spec(OBS_METER) if instrumented else None
+    cb = PagedContinuousBatcher(
+        model, params, num_slots=SLOTS, page_size=PAGE_SIZE,
+        num_pages=PREFIX_POOL_PAGES, max_pages_per_slot=per_slot,
+        chunk_steps=CHUNK_STEPS, prefix_cache=True,
+        prefill_chunk_tokens=PREFIX_CHUNK, telemetry=tel, meter=meter)
+    for i, (t, tenant) in enumerate(stream):
+        cb.submit(Request(rid=i, tokens=t, max_new_tokens=OBS_NEW_TOKENS,
+                          tenant=tenant))
+    cuda = model.device.type == "cuda"
+    build.reset_launch_counts()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = sorted(cb.run(), key=lambda r: r.rid)
+    if cuda:
+        torch.cuda.synchronize()
+    return (cb, done, tel, meter, time.perf_counter() - t0,
+            build.launch_counts())
+
+
+def serve_obs(model, params) -> tuple:
+    """The instrumented serve (`obs_serve`) at full width on the card, held
+    to the same stream served on the card without instrumentation (tokens,
+    stats, both traces' events) and to a CPU dry run with a 1-layer model of
+    the full vocabulary (counters, spans and latency percentiles: the clock
+    is logical and, with no EOS, scheduling depends only on token counts).
+    The meter must be Stage II on the "kv" trace bit for bit and within rel
+    1e-12 of the card's batched engine, its attribution must conserve the
+    live total, and the Perfetto export must re-read and integrate to the
+    trace. Returns (the phase's fields, the card's launch counts)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.core.candidates import Candidate, evaluate_candidates
+    from repro_torch.core.gating import evaluate
+    from repro_torch.kernels import build
+    from repro_torch.models import DecoderLM
+    from repro_torch.obs import counter_integral, export_chrome_trace
+    from repro_torch.params import init_params
+    cfg = model.cfg
+    L = cfg.num_layers
+    stream = obs_stream(cfg.vocab_size)
+    cb, done, tel, meter, wall_s, counts = obs_serve(model, params, stream,
+                                                     True)
+    pcb, pdone, _, _, plain_s, plain_counts = obs_serve(model, params,
+                                                        stream, False)
+    st = cb.stats
+    fields_all = dataclasses.fields(st)
+    stat = {f.name: getattr(st, f.name) for f in fields_all
+            if not f.name.endswith("_s")}
+    check([r.output for r in done] == [r.output for r in pdone],
+          "serve_obs: tokens equal the uninstrumented serve's")
+    check(stat == {k: getattr(pcb.stats, k) for k in stat},
+          "serve_obs: PagedStats equal the uninstrumented serve's")
+    for name in ("trace", "logical"):
+        a, b = getattr(cb.ledger, name), getattr(pcb.ledger, name)
+        check((a.ev_times, a.ev_dneeded, a.ev_dobsolete)
+              == (b.ev_times, b.ev_dneeded, b.ev_dobsolete),
+              f"serve_obs: {name} events equal the uninstrumented serve's")
+    check(counts == plain_counts, "serve_obs: the same kernel launches with "
+          "and without instrumentation")
+    check(len(done) == OBS_REQUESTS and all(
+        len(r.output) == OBS_NEW_TOKENS for r in done),
+        "serve_obs: every request finished with OBS_NEW_TOKENS tokens")
+    snap = tel.snapshot()
+    c = snap["counters"]
+    mirror = {"admitted": "admitted", "retired": "finished",
+              "prefills": "prefills", "chunks": "chunks",
+              "decode_steps": "decode_steps",
+              "pages_allocated": "pages_allocated",
+              "pages_freed": "pages_freed", "pages_evicted": "evicted_pages",
+              "cow_splits": "cow_splits", "prefix_hits": "prefix_hits",
+              "prefix_tokens_reused": "prefix_tokens_reused",
+              "preemptions": "preemptions",
+              "prefill_slices": "prefill_slices"}
+    check(all(c.get(f"serve.paged.{k}", 0) == getattr(st, f)
+              for k, f in mirror.items()),
+          "serve_obs: serve.paged.* counters equal the PagedStats fields")
+    steps = st.chunks * CHUNK_STEPS
+    check(counts["paged_gqa_decode"] == L * steps
+          and counts["flash_attention"] > 0
+          and counts["flash_attention"] % L == 0,
+          f"serve_obs: kernels 1 and 2 launched ({counts})")
+    slo = cb.slo_summary()
+
+    # the CPU dry run: the same stream, a 1-layer model of the full vocab
+    cpu_cfg = dataclasses.replace(cfg, num_layers=1)
+    cpu_model = DecoderLM(cpu_cfg, torch.float32, "cpu")
+    cpu_params = init_params(cpu_cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    t0 = time.perf_counter()
+    dcb, _, dtel, _, _, _ = obs_serve(cpu_model, cpu_params, stream, True)
+    dry_s = time.perf_counter() - t0
+    dslo = dcb.slo_summary()
+    check(dtel.snapshot()["counters"] == c,
+          "serve_obs: counters equal the CPU dry run's")
+    check([(s.name, s.t0, s.t1, s.attrs) for s in tel.spans]
+          == [(s.name, s.t0, s.t1, s.attrs) for s in dtel.spans],
+          "serve_obs: spans (name, t0, t1, attrs) equal the CPU dry run's")
+    lat = [k for k in vars(slo) if k.startswith(("ttft", "tbt", "e2e",
+                                                 "n_requests"))]
+    check({k: getattr(slo, k) for k in lat}
+          == {k: getattr(dslo, k) for k in lat}
+          and slo.kv_peak_bytes / cb.page_bytes
+          == dslo.kv_peak_bytes / dcb.page_bytes,
+          "serve_obs: SLO percentiles equal the CPU dry run's (kv bytes "
+          "in pages)")
+
+    # the meter: Stage II on the "kv" trace, bit for bit and on the card
+    end = cb.occupancy_bundle().total_time
+    res = meter.finalize(end)
+    dur, occ = cb.ledger.trace.occupancy_series(end, use="needed")
+    ref = evaluate(dur, occ, capacity=meter.capacity, banks=meter.banks,
+                   policy=meter.policy, n_reads=0, n_writes=0,
+                   char=meter.char)
+    check((res.e_leak, res.e_sw, res.n_transitions)
+          == (ref.e_leak, ref.e_sw, ref.n_transitions),
+          "serve_obs: meter == gating.evaluate bit for bit")
+    pol = meter.policy
+    build.reset_launch_counts()
+    eng = evaluate_candidates(dur, occ, [Candidate(
+        meter.capacity, meter.banks, pol.alpha, "gate",
+        pol.min_gate_multiple)], n_reads=0, n_writes=0, device="cuda")
+    meter_counts = build.launch_counts()
+    eng_rel = abs(float(eng.e_total[0]) / res.e_total - 1.0)
+    check(eng_rel <= 1e-12 and int(eng.n_off[0]) == res.n_transitions
+          and meter_counts["exact_bank_stats"] == 1,
+          f"serve_obs: meter vs the card's evaluate_candidates rel {eng_rel}")
+    live = meter.energy_j(end)
+    req_j = meter.request_energy_j(end)
+    cons = abs((sum(req_j.values()) + meter.floor_j(end)) / live - 1.0)
+    check(cons <= 1e-12, f"serve_obs: attribution conserves rel {cons}")
+    rep = meter.report(end)
+
+    # the Perfetto export re-reads and integrates to the trace
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "obs.json"
+        bundle = cb.occupancy_bundle()
+        export_chrome_trace(str(path), tel, traces=bundle.traces.values(),
+                            end_time=end, meter=meter,
+                            other_data={"slo": vars(slo)})
+        evs = json.loads(path.read_text())["traceEvents"]
+        n_events = len(evs)
+    area = counter_integral(evs, "kv occupancy [B]", end * 1e6)
+    want = cb.ledger.trace.time_integral(end, use="needed") * 1e6
+    check(abs(area - want) <= 1e-9 * want,
+          f"serve_obs: exported KV track integral {area} vs {want}")
+    fields = dict(
+        arch=cfg.name, layers=L, dtype="bfloat16", kv_dtype="native",
+        slots=SLOTS, page_size=PAGE_SIZE, chunk_steps=CHUNK_STEPS,
+        prefill_chunk_tokens=PREFIX_CHUNK, num_pages=PREFIX_POOL_PAGES,
+        requests=OBS_REQUESTS, new_tokens=OBS_NEW_TOKENS, meter=OBS_METER,
+        prompt_lengths=[len(t) for t, _ in stream], **mechanisms(st),
+        chunks=st.chunks, counters=c, spans=len(tel.spans),
+        span_names=sorted({s.name for s in tel.spans}),
+        slo=vars(slo), wakes=meter.wake_counts(end),
+        j_per_request_p50_p90_p99=list(rep.j_per_request),
+        meter_e_total_j=res.e_total, meter_n_transitions=res.n_transitions,
+        meter_vs_card_engine_rel=eng_rel, conservation_rel=cons,
+        tenant_j=meter.tenant_energy_j(end), floor_j=meter.floor_j(end),
+        peak_pages=cb.ledger.trace.peak_needed() // cb.page_bytes,
+        perfetto_events=n_events, wall_s=wall_s, wall_s_uninstrumented=plain_s,
+        cpu_dry_run_s=dry_s, launches={k: counts[k] for k in (
+            "flash_attention", "paged_gqa_decode")})
+    return fields, counts
+
+
 # -------------------------------------------------------------- stage one
 def stage1_sweep(sim, capacities, prune: bool) -> dict:
     """One Stage-II sweep of a Stage-I result's SRAM trace on the card,
@@ -1672,6 +2014,14 @@ def main() -> None:
     prefix_fields, prefix_counts = serve_prefix(model, params)
     emit("serve_prefix", **prefix_fields)
 
+    # ---- traffic: the traffic campaigns, Stage II on the card vs CPU ----
+    traffic, traffic_counts = traffic_phase()
+    emit("traffic", **traffic)
+
+    # ---- serve_obs: the prefix serve with telemetry and a meter ----
+    obs_fields, obs_counts = serve_obs(model, params)
+    emit("serve_obs", **obs_fields)
+
     # ---- stage1: the paper's flow, Stage I on the host, Stage II here ----
     stage1, stage1_launches, horizon_rows = stage1_phase()
     emit("stage1", **stage1)
@@ -1680,6 +2030,7 @@ def main() -> None:
     flash = dict(
         rows["flash_attention"][0],
         prefix_serve_launches=prefix_counts["flash_attention"],
+        serve_obs_launches=obs_counts["flash_attention"],
         offset_cases=dict(
             cases=len(offset),
             max_abs_err=max(r["max_abs_err"] for r in offset),
@@ -1692,7 +2043,10 @@ def main() -> None:
                                "library_offset_device_ms", "bound_ms",
                                "bound_by")}))
     kernels = []
-    for name, row in (("paged_gqa_decode", rows["paged_gqa_decode"][0]),
+    for name, row in (("paged_gqa_decode",
+                       dict(rows["paged_gqa_decode"][0],
+                            serve_obs_launches=obs_counts[
+                                "paged_gqa_decode"])),
                       ("flash_attention", flash),
                       ("paged_gqa_decode_quant",
                        rows["paged_gqa_decode_quant"][0]),
@@ -1700,12 +2054,15 @@ def main() -> None:
                       ("exact_bank_stats",
                        dict(bank_main["exact_bank_stats"], dtype="float64",
                             scan_launches=launches["running_time"],
+                            traffic_launches=traffic_counts[
+                                "exact_bank_stats"],
                             stage1_launches=stage1_launches[
                                 "exact_bank_stats"],
                             stage1_decode_horizon=horizon_rows[
                                 "exact_bank_stats"])),
                       ("bank_energy",
                        dict(bank_main["bank_energy"], dtype="float64",
+                            traffic_launches=traffic_counts["bank_energy"],
                             stage1_launches=stage1_launches["bank_energy"],
                             stage1_decode_horizon=horizon_rows[
                                 "bank_energy"])),
@@ -1724,6 +2081,8 @@ def main() -> None:
                                          "scan_launches", "stage1_launches",
                                          "stage1_decode_horizon",
                                          "prefix_serve_launches",
+                                         "traffic_launches",
+                                         "serve_obs_launches",
                                          "offset_cases")
                if key in row}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -52,6 +52,12 @@ class SweepTable:
     def best(self) -> SweepRow:
         return min(self.rows, key=lambda r: r.result.e_total)
 
+    def by_capacity(self) -> Dict[int, List[SweepRow]]:
+        out: Dict[int, List[SweepRow]] = {}
+        for r in self.rows:
+            out.setdefault(r.capacity_mib, []).append(r)
+        return out
+
     def format(self) -> str:
         lines = [f"# {self.workload} / {self.mem_name}  (alpha={self.alpha})",
                  f"{'C[MiB]':>7} {'B':>3} {'E[mJ]':>12} {'A[mm2]':>9} "

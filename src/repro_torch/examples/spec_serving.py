@@ -1,7 +1,7 @@
 """Speculative-decoding serving walkthrough on the port: draft and target on
 one page pool -> batched k-token verification -> rollback by page
-truncation -> the occupancy signature Stage II prices. Counterpart of steps
-1-3 of the reference's `examples/spec_serving.py`:
+truncation -> the occupancy signature Stage II prices. Counterpart of the
+reference's `examples/spec_serving.py`:
 
   1. `PagedContinuousBatcher(speculate_k=k)` runs a self-speculation draft
      (every 2nd layer of the target, same weights) that proposes k tokens
@@ -12,10 +12,10 @@ truncation -> the occupancy signature Stage II prices. Counterpart of steps
      draft changes how fast tokens arrive, never which;
   3. both lanes burst to the verify window each round, and `truncate_rows`
      rolls the rejected suffix back: the trace gets negative mid-stream
-     deltas, and the (C, B) sweep prices both live traces.
-
-Step 4 of the reference (the model-free `simulate_spec_traffic` sweep over
-acceptance rates) waits for the port's traffic simulators.
+     deltas, and the (C, B) sweep prices both live traces;
+  4. the model-free `simulate_spec_traffic` sweeps acceptance rates at full
+     width: lower acceptance gives a taller per-round sawtooth on both page
+     lanes, and Stage II prices the acceptance-0.6 trace.
 
 Run on the card:   PYTHONPATH=src python -m repro_torch.examples.spec_serving
 Run on the CPU:    PYTHONPATH=src python -m repro_torch.examples.spec_serving \
@@ -33,6 +33,10 @@ from repro_torch.core.explorer import min_capacity_mib, sweep
 from repro_torch.models import DecoderLM
 from repro_torch.params import init_params
 from repro_torch.serve import PagedContinuousBatcher, Request
+from repro_torch.traffic import (LengthModel, generate,
+                                 simulate_spec_traffic)
+
+MIB = 2**20
 
 
 def run(model, params, prompts, new_tokens, **kw):
@@ -100,6 +104,39 @@ def main() -> None:
         print(table.format())
         print(f"best: C={best.capacity_mib} MiB B={best.banks} -> "
               f"{best.result.e_total * 1e3:.3f} mJ")
+
+    # ---- acceptance rate -> occupancy signature --------------------------
+    # the model-free simulator sweeps what the serving path just produced:
+    # higher rejection = taller per-round sawtooth (burst to the verify
+    # window, rollback to the accepted context) on both page lanes
+    full = get_arch(args.arch)
+    lengths = LengthModel(max_len=512)
+    reqs = generate("poisson", 6.0, 10.0, seed=0, lengths=lengths)
+    print(f"\nmodel-free sweep: {len(reqs)} requests, k=4, draft=0.5x "
+          f"({full.name})")
+    print(f"  {'accept':>6} {'tok/round':>9} {'rolled-back':>11} "
+          f"{'peak[MiB]':>9} {'mean[MiB]':>9}")
+    sims = {}
+    for acc in (0.3, 0.6, 0.9):
+        sim = simulate_spec_traffic(full, reqs, num_slots=8, max_len=512,
+                                    spec_k=4, acceptance=acc,
+                                    draft_kv_frac=0.5, seed=0)
+        sims[acc] = sim
+        s = sim.stats
+        tr = sim.trace
+        print(f"  {acc:>6.1f} "
+              f"{s.accepted_tokens / max(s.spec_rounds, 1):>9.2f} "
+              f"{s.rolled_back_pages:>11} "
+              f"{tr.peak_needed() / MIB:>9.1f} "
+              f"{tr.time_weighted_mean(sim.total_time) / MIB:>9.1f}")
+
+    # ---- Stage II prices the signature -----------------------------------
+    # the sawtooth widens the gap between peak (what capacity must cover)
+    # and mean (what leakage actually pays after gating)
+    print("\n# Stage-II sweep on the acceptance=0.6 spec trace")
+    table = sweep(sims[0.6].bundle, mem_name="kv", capacities_mib=[16, 32],
+                  banks=[1, 4, 8, 16], device=args.device)
+    print(table.format())
 
 
 if __name__ == "__main__":

@@ -1,8 +1,24 @@
-"""Telemetry of the port: the metrics registry (`obs.telemetry`, a copy of
-the reference's). The SLO tracker, the energy meter and the Perfetto export
-are not ported yet."""
-from repro_torch.obs.telemetry import (DEFAULT_BUCKETS,  # noqa: F401
-                                       LATENCY_BUCKETS, Counter, Gauge,
-                                       Histogram, Span, Telemetry,
-                                       default_registry, log_bucket_edges,
-                                       noop_registry)
+"""Telemetry of the port: metrics registry, spans, SLOs, energy meter,
+Perfetto export (copies of the reference package's `repro/obs` modules)."""
+from repro_torch.obs.energy import BankEnergyMeter, MeterReport
+from repro_torch.obs.perfetto import (bank_state_events, chrome_trace_events,
+                                      counter_integral, energy_counter_total,
+                                      export_chrome_trace)
+from repro_torch.obs.slo import (RequestTimeline, SLOSummary, SLOTracker,
+                                 attach_energy_percentiles,
+                                 percentile_summary, summarize_histograms)
+from repro_torch.obs.telemetry import (DEFAULT_BUCKETS, LATENCY_BUCKETS,
+                                       Counter, Gauge, Histogram, Span,
+                                       Telemetry, default_registry,
+                                       log_bucket_edges, noop_registry)
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "Span", "Telemetry",
+    "DEFAULT_BUCKETS", "LATENCY_BUCKETS", "log_bucket_edges",
+    "default_registry", "noop_registry",
+    "RequestTimeline", "SLOSummary", "SLOTracker",
+    "percentile_summary", "summarize_histograms",
+    "chrome_trace_events", "counter_integral", "export_chrome_trace",
+    "BankEnergyMeter", "MeterReport", "attach_energy_percentiles",
+    "bank_state_events", "energy_counter_total",
+]

@@ -7,8 +7,10 @@ steps (`DecoderLM.decode_step`, attending through `kernels.gqa_decode`)
 with no host sync inside it: the emitted tokens stay on the device until
 the loop ends. Sampling at temperature > 0 draws from a `torch.Generator`
 seeded from `ServeConfig.seed`; it does not give JAX's draws, so the port
-matches the reference's tokens at temperature 0 only. Telemetry and the
-energy meter are not ported yet.
+matches the reference's tokens at temperature 0 only. With a `telemetry`
+registry each call records wall-clock "prefill" and "decode" spans and the
+`serve.engine.*` counters; with a `meter` it meters the batch's dense KV
+footprint as a wall-clock square wave, as the reference does.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.obs.telemetry import noop_registry
 
 
 @dataclass
@@ -75,14 +79,22 @@ def _generate_loop(model, temperature: float, collect_logits: bool,
 class BatchedServer:
     def __init__(self, model, params, cfg: ServeConfig,
                  collect_logits: bool = False, telemetry=None, meter=None):
-        for name, value in (("telemetry", telemetry), ("meter", meter)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet; the port serves without it")
         self.model = model
         self.params = params
         self.cfg = cfg
         self.collect_logits = collect_logits
+        # wall-clock spans (this engine has no logical sim clock); claim the
+        # registry's clock anyway so mixing this engine and a batcher on one
+        # registry fails loudly instead of mixing time bases
+        self.tel = telemetry if telemetry is not None else noop_registry()
+        if telemetry is not None:
+            telemetry.bind_clock(time.perf_counter, owner=self)
+        # optional BankEnergyMeter: this engine has no page ledger, so each
+        # generate() meters as a wall-clock square wave: the batch's dense
+        # KV footprint admitted at prefill end, grown over decode, freed at
+        # the end of the call
+        self.meter = meter
+        self._gen_seq = 0
 
     def generate(self, batch: Dict[str, Any],
                  max_new_tokens: Optional[int] = None) -> Dict[str, Any]:
@@ -100,10 +112,24 @@ class BatchedServer:
         stats = ServeStats()
 
         t0 = time.perf_counter()
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens},
-                                           self.cfg.max_len)
-        _sync(dev)
+        with self.tel.span("prefill", tokens=int(tokens.shape[1])):
+            logits, cache = self.model.prefill(self.params,
+                                               {"tokens": tokens},
+                                               self.cfg.max_len)
+            _sync(dev)
         stats.prefill_s = time.perf_counter() - t0
+
+        rid = None
+        kv0 = 0
+        mcfg = getattr(self.model, "cfg", None)
+        if self.meter is not None and mcfg is not None:
+            from repro_torch.serve.scheduler import kv_bytes_at
+            B, S = tokens.shape
+            rid = f"gen{self._gen_seq}"
+            self._gen_seq += 1
+            kv0 = B * kv_bytes_at(mcfg, int(S), 2)
+            self.meter.record(time.perf_counter(), kv0, 0, rid=rid,
+                              cause="admission")
 
         tok = _sample(self.cfg.temperature, logits, gen)
         first = tok.cpu().numpy()
@@ -114,17 +140,30 @@ class BatchedServer:
         t0 = time.perf_counter()
         step_logits = None
         if n_new > 1:
-            toks, step_logits = _generate_loop(
-                self.model, self.cfg.temperature, self.collect_logits,
-                n_new - 1, self.params, cache, tok, gen)
-            rest = toks.T.cpu().numpy()                     # (B, steps)
-            if step_logits is not None:
-                step_logits = step_logits.cpu().numpy()     # (steps, B, V)
+            with self.tel.span("decode", steps=n_new - 1):
+                toks, step_logits = _generate_loop(
+                    self.model, self.cfg.temperature, self.collect_logits,
+                    n_new - 1, self.params, cache, tok, gen)
+                rest = toks.T.cpu().numpy()                 # (B, steps)
+                if step_logits is not None:
+                    step_logits = step_logits.cpu().numpy()  # (steps, B, V)
         else:
             rest = np.zeros((first.shape[0], 0), first.dtype)
         stats.decode_s = time.perf_counter() - t0
         stats.tokens_generated = n_new * first.shape[0]
         stats.tbt_s = stats.decode_s / (n_new - 1) if n_new > 1 else 0.0
+        if rid is not None:
+            from repro_torch.serve.scheduler import kv_bytes_at
+            B, S = tokens.shape
+            t_end = time.perf_counter()
+            grown = B * kv_bytes_at(mcfg, int(S) + n_new, 2) - kv0
+            if grown:
+                self.meter.record(t_end, grown, 0, rid=rid,
+                                  cause="decode_growth")
+            self.meter.record(t_end, -(kv0 + grown), 0, rid=rid)
+        self.tel.counter("serve.engine.generate_calls").inc()
+        self.tel.counter("serve.engine.tokens_generated").inc(
+            stats.tokens_generated)
         out = {"tokens": np.concatenate([first, rest], axis=1),
                "stats": stats}
         if self.collect_logits:

@@ -18,8 +18,10 @@ page pools (`kv_dtype` native/fp32/bf16/fp16/int8/fp8, pages priced by
 verified by `DecoderLM.verify_step_paged`, rollback by page truncation),
 prefix sharing (`prefix_cache`: `serve.prefix`'s radix index, refcounted
 COW pages and dual traces), chunked prefill (`prefill_chunk_tokens`),
-priority admission with preemption, and `on_long_prompt`. Not yet ported
-(the batcher raises `NotImplementedError`): telemetry and the energy meter.
+priority admission with preemption, `on_long_prompt`, and the
+instrumentation: `telemetry=` (the `serve.paged.*` counters and gauges,
+spans and per-request SLO timelines on the logical clock, `slo_summary()`)
+and `meter=` (a streaming `obs.energy.BankEnergyMeter` fed by the ledger).
 """
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ from repro_torch.models.transformer import (
     _require_pure_full, copy_pages, gather_prefix_pages, init_paged_cache,
     prefix_tail_rows, self_spec_draft, write_prefill_to_pages,
     write_shared_prefill_to_pages)
+from repro_torch.obs.slo import (RequestTimeline, SLOSummary, SLOTracker,
+                                 attach_energy_percentiles)
+from repro_torch.obs.telemetry import noop_registry
 from repro_torch.serve.scheduler import AdmissionQueue, Request, SchedulerStats
 from repro_torch.sim.trace import AccessStats, OccupancyTrace, TraceBundle
 
@@ -118,11 +123,32 @@ class PagedKVLedger:
         self.draft_pages: Dict[int, List[int]] = {}
         # draft pages are priced like target pages until enable_draft_lane
         self.draft_page_bytes = page_bytes_
+        # optional streaming energy meter (obs.energy.BankEnergyMeter):
+        # every trace delta is mirrored to it, tagged with the slot's
+        # request/tenant and the ledger verb that caused it
+        self.meter = None
+        self.slot_meta: Dict[int, tuple] = {}
+
+    def set_slot_meta(self, slot: int, rid, tenant=None) -> None:
+        """Tag a slot so mirrored meter events attribute to its request."""
+        self.slot_meta[slot] = (rid, tenant)
+
+    def _mark(self, t: float, delta: int, slot: int,
+              cause: Optional[str]) -> None:
+        self.trace.event(t, delta, 0)
+        if self.meter is not None:
+            rid, tenant = self.slot_meta.get(slot, (None, None))
+            self.meter.record(t, delta, 0, rid=rid, tenant=tenant,
+                              cause=cause)
 
     def occupancy_bytes(self) -> int:
         nd = sum(len(p) for p in self.draft_pages.values())
         return ((self.allocator.n_allocated - nd) * self.page_bytes
                 + nd * self.draft_page_bytes)
+
+    def logical_bytes(self) -> int:
+        """Without sharing, logical (per-slot demand) == physical bytes."""
+        return self.occupancy_bytes()
 
     def admit(self, slot: int, n_pages: int, t: float) -> List[int]:
         if slot in self.slot_pages:
@@ -130,21 +156,20 @@ class PagedKVLedger:
         pages = self.allocator.alloc(n_pages)
         self.slot_pages[slot] = list(pages)
         if n_pages:
-            self.trace.event(t, n_pages * self.page_bytes, 0)
+            self._mark(t, n_pages * self.page_bytes, slot, "admission")
         return pages
 
     def grow(self, slot: int, total_pages: int, t: float,
              cause: str = "decode_growth") -> List[int]:
-        """Extend the slot to `total_pages`. `cause` names the growth as in
-        the reference, where it tags the energy meter's event; the port has
-        no meter yet, so it changes nothing."""
+        """Extend the slot to `total_pages`; `cause` ("decode_growth", or
+        "admission" for a chunked-prefill slice) tags the meter's event."""
         have = self.slot_pages[slot]
         extra = total_pages - len(have)
         if extra <= 0:
             return []
         pages = self.allocator.alloc(extra)
         have.extend(pages)
-        self.trace.event(t, extra * self.page_bytes, 0)
+        self._mark(t, extra * self.page_bytes, slot, cause)
         return pages
 
     def retire(self, slot: int, t: float) -> int:
@@ -152,11 +177,12 @@ class PagedKVLedger:
         pages = self.slot_pages.pop(slot)
         self.allocator.free(pages)
         if pages:
-            self.trace.event(t, -len(pages) * self.page_bytes, 0)
+            self._mark(t, -len(pages) * self.page_bytes, slot, None)
         dpages = self.draft_pages.pop(slot, [])
         if dpages:
             self.allocator.free(dpages)
-            self.trace.event(t, -len(dpages) * self.draft_page_bytes, 0)
+            self._mark(t, -len(dpages) * self.draft_page_bytes, slot, None)
+        self.slot_meta.pop(slot, None)
         return len(pages) + len(dpages)
 
     # ------------------------------------------------- speculative draft lane
@@ -171,7 +197,7 @@ class PagedKVLedger:
         pages = self.allocator.alloc(n_pages)
         self.draft_pages[slot] = list(pages)
         if n_pages:
-            self.trace.event(t, n_pages * self.draft_page_bytes, 0)
+            self._mark(t, n_pages * self.draft_page_bytes, slot, "admission")
         return pages
 
     def grow_draft(self, slot: int, total_pages: int, t: float) -> List[int]:
@@ -181,7 +207,7 @@ class PagedKVLedger:
             return []
         pages = self.allocator.alloc(extra)
         have.extend(pages)
-        self.trace.event(t, extra * self.draft_page_bytes, 0)
+        self._mark(t, extra * self.draft_page_bytes, slot, "decode_growth")
         return pages
 
     def truncate_rows(self, slot: int, n_rows: int,
@@ -198,14 +224,16 @@ class PagedKVLedger:
             freed_t = have[keep:]
             del have[keep:]
             self.allocator.free(freed_t)
-            self.trace.event(t, -len(freed_t) * self.page_bytes, 0)
+            self._mark(t, -len(freed_t) * self.page_bytes, slot,
+                       "spec_rollback")
         freed_d: List[int] = []
         dhave = self.draft_pages.get(slot)
         if dhave is not None and keep < len(dhave):
             freed_d = dhave[keep:]
             del dhave[keep:]
             self.allocator.free(freed_d)
-            self.trace.event(t, -len(freed_d) * self.draft_page_bytes, 0)
+            self._mark(t, -len(freed_d) * self.draft_page_bytes, slot,
+                       "spec_rollback")
         return freed_t, freed_d
 
 
@@ -288,6 +316,15 @@ class PagedContinuousBatcher:
     `core.explorer.sweep` unchanged. Times on it are logical (`step_time_s`
     per decode step, `prefill_tok_s` per prefilled token), as in the
     reference, so the trace does not depend on the device's speed.
+
+    Instrumentation only observes. An enabled `telemetry` registry has its
+    clock bound to that logical clock (a second owner raises): its counters
+    mirror `PagedStats`, its spans (request, decode, prefill,
+    prefill_slice, preempt, cow, decode_chunk) and each request's
+    `Request.timeline` are on the trace's time base, and `slo_summary()`
+    reads TTFT / TBT / e2e percentiles from them. A `meter` rides the
+    ledger: every page event is mirrored to it, tagged with the slot's
+    request and tenant and the verb that caused it.
     """
 
     def __init__(self, model, params, *, num_slots: int = 4,
@@ -328,11 +365,6 @@ class PagedContinuousBatcher:
             if (draft_model is None) != (draft_params is None):
                 raise ValueError("pass draft_model and draft_params "
                                  "together (or neither for self-spec)")
-        for name, value in (("telemetry", telemetry), ("meter", meter)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet; the port serves "
-                    "without it")
         self.model = model
         self.params = params
         self.cfg = model.cfg
@@ -350,9 +382,44 @@ class PagedContinuousBatcher:
         self.on_long_prompt = on_long_prompt
         self.speculate_k = speculate_k
 
+        # spans and SLOs record on the batcher's logical sim clock, the time
+        # base of the ledger's occupancy trace, so a passed-in registry has
+        # its clock bound here (the Perfetto export then shows request spans
+        # and the KV counter track on one timeline); bind_clock raises if
+        # another engine already owns the registry's clock
+        self.tel = telemetry if telemetry is not None else noop_registry()
+        if telemetry is not None:
+            telemetry.bind_clock(lambda: self._sim_t, owner=self)
+        tel = self.tel
+        self._slo = (SLOTracker(tel, "serve.paged") if tel.enabled else None)
+        self._c_admitted = tel.counter("serve.paged.admitted")
+        self._c_retired = tel.counter("serve.paged.retired")
+        self._c_prefills = tel.counter("serve.paged.prefills")
+        self._c_chunks = tel.counter("serve.paged.chunks")
+        self._c_steps = tel.counter("serve.paged.decode_steps")
+        self._c_alloc = tel.counter("serve.paged.pages_allocated")
+        self._c_freed = tel.counter("serve.paged.pages_freed")
+        self._c_evicted = tel.counter("serve.paged.pages_evicted")
+        self._c_cow = tel.counter("serve.paged.cow_splits")
+        self._c_hits = tel.counter("serve.paged.prefix_hits")
+        self._c_miss = tel.counter("serve.paged.prefix_misses")
+        self._c_reused = tel.counter("serve.paged.prefix_tokens_reused")
+        self._c_wait = tel.counter("serve.paged.backpressure_waits")
+        self._c_preempt = tel.counter("serve.paged.preemptions")
+        self._c_slices = tel.counter("serve.paged.prefill_slices")
+        self._c_spec_rounds = tel.counter("serve.paged.spec_rounds")
+        self._c_drafted = tel.counter("serve.paged.spec_drafted")
+        self._c_accepted = tel.counter("serve.paged.spec_accepted")
+        self._c_rollback = tel.counter("serve.paged.spec_rolled_back_pages")
+        self._c_dequant = tel.counter("quant.dequant_pages")
+        self._g_pages = tel.gauge("serve.paged.pages_in_use")
+        self._g_kv_phys = tel.gauge("serve.paged.kv_bytes_physical")
+        self._g_kv_logical = tel.gauge("serve.paged.kv_bytes_logical")
+
         self.collect_logits = collect_logits
         kv_spec = kv_dtype_spec(kv_dtype, native=model.compute_dtype)
         self.kv_dtype = kv_spec.name
+        self.kv_quantized = kv_spec.quantized
         self.page_bytes = page_bytes(self.cfg, page_size, kv_spec.itemsize,
                                      kv_spec.scale_bytes_per_row)
         self.row_bytes = self.page_bytes // page_size
@@ -360,15 +427,21 @@ class PagedContinuousBatcher:
             from repro_torch.serve.prefix import SharedKVLedger
             self.ledger = SharedKVLedger(
                 num_pages, self.page_bytes, page_size, num_slots=num_slots,
-                max_pages_per_slot=self.max_pages_per_slot)
+                max_pages_per_slot=self.max_pages_per_slot, telemetry=tel)
         else:
             self.ledger = PagedKVLedger(num_pages, self.page_bytes,
                                         page_size)
+        # optional streaming BankEnergyMeter: rides the ledger, so every page
+        # event is mirrored on the same sim clock, tagged with the causing
+        # request; the batcher only supplies slot -> request metadata
+        self.meter = meter
+        self.ledger.meter = meter
         self.access = AccessStats()
         self.stats = PagedStats()
 
         self.queue = AdmissionQueue()
         self.slots: List[Optional[Request]] = [None] * num_slots
+        self._tokens_by_rid: Dict[int, int] = {}   # retired, for J/token
         self._reserved = [0] * num_slots        # worst-case pages not yet held
         self._ctx = np.zeros(num_slots, np.int64)
         self._next_tok = np.zeros(num_slots, np.int64)
@@ -449,6 +522,8 @@ class PagedContinuousBatcher:
                 f"holds {self.num_pages - 1}")
         req.submitted_wall_s = time.perf_counter()
         req.submitted_s = self._sim_t
+        if self.tel.enabled:
+            req.timeline = RequestTimeline(rid=req.rid, submit_t=self._sim_t)
         self.queue.push(req)
 
     def run(self, max_chunks: int = 10_000) -> List[Request]:
@@ -458,7 +533,30 @@ class PagedContinuousBatcher:
                 break
             self._admit(done)
             self._decode_chunk(done)
+        if self._slo is not None:
+            self.slo_summary()           # refresh stats percentiles once
         return done
+
+    def slo_summary(self) -> SLOSummary:
+        """Percentiles of per-request TTFT / TBT / e2e on the sim clock
+        (zeros when the batcher runs without an enabled registry), computed
+        here, at read time, never inside the decode loop."""
+        if self._slo is None:
+            return SLOSummary()
+        s = self._slo.summary()
+        # bytes-based physical occupancy (pages x quantized page_bytes) next
+        # to the latency percentiles
+        s.kv_peak_bytes = float(self.ledger.trace.peak_needed())
+        s.kv_mean_bytes = float(self.ledger.trace.time_weighted_mean(
+            max(self._sim_t, self.step_time_s)))
+        st = self.stats
+        st.ttft_p50_s, st.ttft_p99_s = s.ttft_p50_s, s.ttft_p99_s
+        st.tbt_p50_s, st.tbt_p99_s = s.tbt_p50_s, s.tbt_p99_s
+        st.e2e_p50_s, st.e2e_p99_s = s.e2e_p50_s, s.e2e_p99_s
+        if self.meter is not None:
+            attach_energy_percentiles(s, self.meter.request_energy_j(),
+                                      self._tokens_by_rid)
+        return s
 
     def occupancy_bundle(self) -> TraceBundle:
         """Page-granular Stage-II view: feed to explorer.sweep() unchanged.
@@ -493,9 +591,18 @@ class PagedContinuousBatcher:
     def _lanes(self) -> int:
         return 2 if self.speculate_k is not None else 1
 
-    def _release_slot(self, i: int, t: float) -> None:
+    def _set_page_gauges(self) -> None:
+        """Page-count and bytes gauges: physical = pool pages held x
+        page_bytes (quantization shrinks page_bytes), logical = the per-slot
+        demand a non-sharing allocator would pin."""
+        n = self.ledger.allocator.n_allocated
+        self._g_pages.set(n)
+        self._g_kv_phys.set(n * self.page_bytes)
+        self._g_kv_logical.set(self.ledger.logical_bytes())
+
+    def _release_slot(self, i: int, t: float) -> int:
         """Free slot `i`'s pages (both lanes) and clear its host mirrors;
-        shared by retirement and preemption."""
+        shared by retirement and preemption. Returns the pages freed."""
         self.slots[i] = None
         n = self.ledger.retire(i, t)
         self.stats.pages_freed += n
@@ -505,14 +612,33 @@ class PagedContinuousBatcher:
         self._table[i, :] = 0
         if self.speculate_k is not None:
             self._draft_table[i, :] = 0
+        return n
 
     def _retire(self, i: int, req: Request, done: List[Request],
                 t: float) -> None:
         req.finished_wall_s = time.perf_counter()
         req.finished_s = t
         done.append(req)
-        self._release_slot(i, t)
+        n = self._release_slot(i, t)
         self.stats.finished += 1
+        self._c_retired.inc()
+        self._c_freed.inc(n)
+        self._set_page_gauges()
+        if self.meter is not None:
+            self._tokens_by_rid[req.rid] = len(req.output)
+        tl = req.timeline
+        if tl is not None and self.meter is not None:
+            # final at retire: the request holds no pages past this event,
+            # so no later charge can land on it
+            tl.energy_j = self.meter.request_energy_live(req.rid)
+        if tl is not None and self._slo is not None:
+            tl.finish_t = t
+            self._slo.observe(tl)
+            self.tel.add_span("request", tl.submit_t, t, rid=req.rid,
+                              tokens=len(req.output))
+            if np.isfinite(tl.first_token_t) and t > tl.first_token_t:
+                self.tel.add_span("decode", tl.first_token_t, t, slot=i,
+                                  rid=req.rid)
 
     def _preempt_victim(self, priority: int) -> Optional[int]:
         """The slot to evict for a `priority`-class admission: the
@@ -540,8 +666,15 @@ class PagedContinuousBatcher:
         req.output.clear()
         req.logits.clear()
         req.preemptions += 1
-        self._release_slot(i, t)
+        n = self._release_slot(i, t)
         self.stats.preemptions += 1
+        self._c_preempt.inc()
+        self._c_freed.inc(n)
+        self._set_page_gauges()
+        if req.timeline is not None:
+            req.timeline.reset_admission()
+        if self.tel.enabled:
+            self.tel.add_span("preempt", t, t, slot=i, rid=req.rid)
         self.queue.push(req)     # fresh seq: re-enters behind its own class
 
     def _preempt_for(self, priority: int, worst: int) -> bool:
@@ -581,6 +714,7 @@ class PagedContinuousBatcher:
                 * self._lanes
             if worst > self._available_pages() \
                     and not self._preempt_for(req.priority, worst):
+                self._c_wait.inc()
                 break                      # wait for pages to free up
             self.queue.pop()
             if (self.prefill_chunk_tokens is not None
@@ -594,6 +728,8 @@ class PagedContinuousBatcher:
                 npg * self.page_size)
             tok = int(torch.argmax(logits[0, -1]))
             self._sim_t += prompt_len * self.prefill_tok_s
+            if self.meter is not None:
+                self.ledger.set_slot_meta(i, req.rid, req.tenant)
             pages = self.ledger.admit(i, npg, self._sim_t)
             self._reserved[i] = worst - npg
             self.stats.pages_allocated += npg
@@ -601,6 +737,7 @@ class PagedContinuousBatcher:
                                         self.ledger.allocator.n_allocated)
             self.stats.admitted_kv_bytes += npg * self.page_bytes
             self.access.add_write("kv", prompt_len * self.row_bytes)
+            self._c_alloc.inc(npg)
             write_prefill_to_pages(self.cfg, self._cache, dense, i,
                                    torch.as_tensor(pages, dtype=torch.int32))
             self._commit_admission(i, req, done, tok, logits, prompt_len,
@@ -614,6 +751,8 @@ class PagedContinuousBatcher:
         logits and the number of fresh pages."""
         held = list(self.ledger.slot_pages[i])
         prefix = gather_prefix_pages(self.cfg, self._cache, held, pos)
+        if self.kv_quantized:
+            self._c_dequant.inc(len(held))
         head = prefix_tail_rows(prefix, 0)          # pos is page-aligned
         logits, suffix = self.model.prefill_shared(
             self.params, {"tokens": self._tokens(tokens)}, prefix,
@@ -633,6 +772,17 @@ class PagedContinuousBatcher:
         self.stats.peak_pages = max(self.stats.peak_pages,
                                     self.ledger.allocator.n_allocated)
         self.access.add_write("kv", take * self.row_bytes)
+        self._c_alloc.inc(new_n)
+
+    def _note_slice(self, i: int, req: Request, t0: float,
+                    take: int) -> None:
+        """Count one executed prefill slice of slot `i` and span it from
+        `t0` to now."""
+        self.stats.prefill_slices += 1
+        self._c_slices.inc()
+        if self.tel.enabled:
+            self.tel.add_span("prefill_slice", t0, self._sim_t, slot=i,
+                              rid=req.rid, tokens=take)
 
     def _admit_chunked(self, i: int, req: Request, done: List[Request],
                        worst: int) -> None:
@@ -654,12 +804,15 @@ class PagedContinuousBatcher:
         logits = None
         while pos < S:
             take = min(C, S - pos)
+            t0 = self._sim_t
             if pos == 0:
                 new_n = pages_for(take, ps)
                 logits, dense = self.model.prefill(
                     self.params, {"tokens": self._tokens(prompt[:take])},
                     new_n * ps)
                 self._sim_t += take * self.prefill_tok_s
+                if self.meter is not None:
+                    self.ledger.set_slot_meta(i, req.rid, req.tenant)
                 pages = self.ledger.admit(i, new_n, self._sim_t)
                 self._reserved[i] = worst - new_n
                 write_prefill_to_pages(self.cfg, self._cache, dense, i,
@@ -669,7 +822,7 @@ class PagedContinuousBatcher:
                 logits, new_n = self._slice_prefill(
                     i, prompt[pos:pos + take], pos)
             self._count_slice(take, new_n)
-            self.stats.prefill_slices += 1
+            self._note_slice(i, req, t0, take)
             pos += take
             if pos < S:
                 # let the active slots stream tokens before the next slice
@@ -706,11 +859,13 @@ class PagedContinuousBatcher:
             freed = self.ledger.evict_for(short, self._sim_t)
             if freed:
                 self.stats.evicted_pages += freed
+                self._c_evicted.inc(freed)
             else:
                 # nothing cached left to drop: preempt a lower-priority
                 # slot before giving up (pages free via the retire path)
                 v = self._preempt_victim(req.priority)
                 if v is None:
+                    self._c_wait.inc()
                     return False
                 self._preempt(v, self._sim_t)
             # eviction or preemption may have changed the matched path
@@ -736,17 +891,22 @@ class PagedContinuousBatcher:
         pos = m
         logits = None
         for si, take in enumerate(slices):
+            t0 = self._sim_t
             if si == 0:
                 gather_ids = list(match.pages) + \
                     ([match.tail_page] if j else [])
                 prefix = gather_prefix_pages(self.cfg, self._cache,
                                              gather_ids, m)
+                if self.kv_quantized and gather_ids:
+                    self._c_dequant.inc(len(gather_ids))
                 head = prefix_tail_rows(prefix, j)
                 logits, suffix = self.model.prefill_shared(
                     self.params, {"tokens": self._tokens(prompt[m:m + take])},
                     prefix, pad_to=self._pad_to)
                 self._sim_t += take * self.prefill_tok_s  # suffix only
                 new_n = pages_for(m + take, ps) - n_full
+                if self.meter is not None:
+                    self.ledger.set_slot_meta(i, req.rid, req.tenant)
                 fresh = self.ledger.admit(i, new_n, self._sim_t,
                                           shared=match.pages)
                 self._reserved[i] = demand(match) - new_n
@@ -757,7 +917,7 @@ class PagedContinuousBatcher:
                     i, prompt[pos:pos + take], pos)
             self._count_slice(take, new_n)
             if len(slices) > 1:
-                self.stats.prefill_slices += 1
+                self._note_slice(i, req, t0, take)
             pos += take
             if pos < S:
                 # let the active slots stream tokens before the next slice
@@ -766,6 +926,10 @@ class PagedContinuousBatcher:
         if m:
             self.stats.prefix_hits += 1
             self.stats.prefix_tokens_reused += m
+            self._c_hits.inc()
+            self._c_reused.inc(m)
+        else:
+            self._c_miss.inc()
         # cache this run for later requests (the index refs its pages)
         self.ledger.insert_run(prompt, self.ledger.slot_pages[i], self._sim_t)
         self._commit_admission(i, req, done, tok, logits, S,
@@ -776,10 +940,21 @@ class PagedContinuousBatcher:
                           tok: int, logits: torch.Tensor, ctx: int,
                           table_pages: List[int], t_pre: float) -> None:
         """Host mirrors, stats, the prefill-produced first token, and the
-        immediate retire when that token already satisfies the request
-        (`t_pre`, the sim time before the prefill, is the reference's span
-        start; the port records no spans yet)."""
+        immediate retire when that token already satisfies the request.
+        `t_pre` is the sim time before the prefill advance (the span
+        start)."""
         self.slots[i] = req
+        self._c_admitted.inc()
+        self._c_prefills.inc()
+        self._set_page_gauges()
+        if self.tel.enabled:
+            self.tel.add_span("prefill", t_pre, self._sim_t, slot=i,
+                              rid=req.rid, tokens=ctx)
+            tl = req.timeline
+            if tl is not None:
+                tl.admit_t = t_pre
+                tl.first_token_t = self._sim_t
+                tl.token_ts.append(self._sim_t)
         self._ctx[i] = ctx
         self._next_tok[i] = tok
         self._table[i, :] = 0
@@ -821,6 +996,8 @@ class PagedContinuousBatcher:
                                     self.ledger.allocator.n_allocated)
         self.stats.admitted_kv_bytes += dn * self.draft_page_bytes
         self.access.add_write("kv", S * self.draft_row_bytes)
+        self._c_alloc.inc(dn)
+        self._set_page_gauges()
 
     def _cow_for_chunk(self, i: int, steps_i: int, t: float) -> None:
         """Copy-on-write split every shared page this chunk will write.
@@ -844,6 +1021,9 @@ class PagedContinuousBatcher:
             self._reserved[i] -= 1
             self.stats.cow_splits += 1
             self.stats.pages_allocated += 1
+            self._c_cow.inc()
+            self._c_alloc.inc()
+            self.tel.add_span("cow", t, t, slot=i, page=new)
 
     def _decode_loop(self, tok: torch.Tensor, eos: torch.Tensor,
                      remaining: torch.Tensor):
@@ -894,6 +1074,7 @@ class PagedContinuousBatcher:
                 self._reserved[i] -= len(new_pages)
                 self.stats.pages_allocated += len(new_pages)
                 self.stats.admitted_kv_bytes += len(new_pages) * nbytes
+                self._c_alloc.inc(len(new_pages))
 
     def _push_host_state(self, cache: dict, table: np.ndarray) -> None:
         """The host is the source of truth between chunks: push a page-table
@@ -939,6 +1120,8 @@ class PagedContinuousBatcher:
         still_active = out[self.chunk_steps + 1].astype(bool)
         self.stats.chunks += 1
         self._sim_t = t0 + self.chunk_steps * self.step_time_s
+        self._c_chunks.inc()
+        self.tel.add_span("decode_chunk", t0, self._sim_t, slots=len(live))
 
         for i in live:
             req = self.slots[i]
@@ -955,6 +1138,14 @@ class PagedContinuousBatcher:
             pages_read = int((np.ceil(ctxs / self.page_size)).sum())
             self.access.add_read("kv", pages_read * self.page_bytes)
             self.access.add_write("kv", g * self.row_bytes)
+            if self.kv_quantized and pages_read:
+                # every page the fused kernel streams is dequantized in
+                # registers
+                self._c_dequant.inc(pages_read)
+            self._c_steps.inc(g)
+            if req.timeline is not None and g:
+                req.timeline.token_ts.extend(
+                    (t0 + self.step_time_s * np.arange(1, g + 1)).tolist())
             self._ctx[i] += g
             if not still_active[i]:
                 self._retire(i, req, done, t0 + g * self.step_time_s)
@@ -1065,6 +1256,8 @@ class PagedContinuousBatcher:
         still_active = out[n + self.num_slots:].astype(bool)
         self.stats.chunks += 1
         self._sim_t = t0 + R * self.spec_round_time_s
+        self._c_chunks.inc()
+        self.tel.add_span("decode_chunk", t0, self._sim_t, slots=len(live))
 
         for i in live:
             req = self.slots[i]
@@ -1079,6 +1272,9 @@ class PagedContinuousBatcher:
             self.stats.spec_rounds += rounds_used
             self.stats.drafted_tokens += rounds_used * k
             self.stats.accepted_tokens += g
+            self._c_spec_rounds.inc(rounds_used)
+            self._c_drafted.inc(rounds_used * k)
+            self._c_accepted.inc(g)
             # page-granular access accounting, per round: the verify kernel
             # streams the target's resident pages once; the draft streams
             # its own lane for each of its k + 1 sequential steps
@@ -1095,6 +1291,15 @@ class PagedContinuousBatcher:
                                  + pages_d * self.draft_page_bytes)
             self.access.add_write("kv", rounds_used * (
                 V * self.row_bytes + (k + 1) * self.draft_row_bytes))
+            if self.kv_quantized and pages_t:
+                self._c_dequant.inc(pages_t + pages_d)
+            self._c_steps.inc(g)
+            if req.timeline is not None and g:
+                ts: List[float] = []
+                for r in range(rounds_used):
+                    ts.extend([t0 + (r + 1) * self.spec_round_time_s]
+                              * int(m_r[r]))
+                req.timeline.token_ts.extend(ts)
             self._ctx[i] = ctx + g
             t_end = t0 + rounds_used * self.spec_round_time_s
             # rollback by page truncation: both lanes drop every page past
@@ -1108,5 +1313,7 @@ class PagedContinuousBatcher:
                 self._reserved[i] += nf
                 self.stats.pages_freed += nf
                 self.stats.rolled_back_pages += nf
+                self._c_freed.inc(nf)
+                self._c_rollback.inc(nf)
             if not still_active[i]:
                 self._retire(i, req, done, t_end)

@@ -1,7 +1,7 @@
 """Prefix-sharing KV reuse: radix prefix index + refcounted COW page sharing
 (port of the reference package's `repro/serve/prefix.py`; host code, copied
-line for line without the energy-meter mirror, which the port does not
-have yet).
+line for line, the energy-meter mirror and the telemetry counters
+included).
 
 At serving scale the dominant KV-occupancy lever beyond GQA is cross-request
 reuse: real traffic (chat system prompts, few-shot templates, agentic
@@ -36,7 +36,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.obs.telemetry import noop_registry
 from repro_torch.serve.paged import PageAllocator, pages_for
 from repro_torch.sim.trace import OccupancyTrace
 
@@ -144,6 +143,7 @@ class RadixPrefixIndex:
 
     def __init__(self, page_size: int, allocator: SharedPageAllocator,
                  telemetry=None):
+        from repro_torch.obs.telemetry import noop_registry
         tel = telemetry if telemetry is not None else noop_registry()
         self._c_probe_hits = tel.counter("serve.prefix.probe_hits")
         self._c_probe_miss = tel.counter("serve.prefix.probe_misses")
@@ -325,6 +325,7 @@ class SharedKVLedger:
     def __init__(self, num_pages: int, page_bytes_: int, page_size: int,
                  num_slots: int = 0, max_pages_per_slot: int = 0,
                  telemetry=None):
+        from repro_torch.obs.telemetry import noop_registry
         tel = telemetry if telemetry is not None else noop_registry()
         self.tel = tel
         self._c_evicted = tel.counter("serve.prefix.evicted_pages")
@@ -349,6 +350,18 @@ class SharedKVLedger:
         self.draft_pages: Dict[int, List[int]] = {}
         self.draft_page_bytes: Optional[int] = None
         self._last_draft = 0
+        # optional streaming energy meter (obs.energy.BankEnergyMeter):
+        # sync() mirrors every physical delta to it, tagged with the
+        # mutating slot's request/tenant; the attribution weight is the
+        # slot's *logical* holdings change (shared pages sustain banks for
+        # every referencing request, so each holds its full logical share)
+        self.meter = None
+        self.slot_meta: Dict[int, tuple] = {}
+        self._meter_w: Dict[int, int] = {}
+
+    def set_slot_meta(self, slot: int, rid, tenant=None) -> None:
+        """Tag a slot so mirrored meter events attribute to its request."""
+        self.slot_meta[slot] = (rid, tenant)
 
     # ------------------------------------------------------------ accounting
     def occupancy_bytes(self) -> int:
@@ -373,12 +386,14 @@ class SharedKVLedger:
         obsolete = self.allocator.n_allocated - needed - ndraft
         return needed, obsolete, logical
 
-    def sync(self, t: float) -> None:
+    def sync(self, t: float, slot: Optional[int] = None,
+             cause: Optional[str] = None) -> None:
         """Emit the delta between the live page counts and the last synced
         state on both traces. Call after any out-of-band index mutation.
         Draft-lane pages count as `needed` (they back live slots) at the
         draft lane's own page bytes; with the lane unused the accounting is
-        bit-identical to the pre-speculation ledger."""
+        bit-identical to the pre-speculation ledger. `slot`/`cause` tag the
+        mutation for the (optional) energy meter mirror."""
         needed, obsolete, logical = self._counts()
         ndraft = sum(len(p) for p in self.draft_pages.values())
         pn, po, pl = self._last
@@ -395,6 +410,19 @@ class SharedKVLedger:
         self._g_physical.set(needed)
         self._g_cached.set(obsolete)
         self._g_logical.set(logical)
+        if self.meter is not None:
+            wd = 0
+            if slot is not None:
+                w = (len(self.slot_pages.get(slot, ())) * pb
+                     + len(self.draft_pages.get(slot, ())) * db)
+                wd = w - self._meter_w.pop(slot, 0)
+                if w:
+                    self._meter_w[slot] = w
+            if dn or do or wd:
+                rid, tenant = ((None, None) if slot is None
+                               else self.slot_meta.get(slot, (None, None)))
+                self.meter.record(t, dn, do, rid=rid, tenant=tenant,
+                                  cause=cause, weight_delta=wd)
 
     # ------------------------------------------------------------------ verbs
     def admit(self, slot: int, n_pages: int, t: float,
@@ -410,22 +438,18 @@ class SharedKVLedger:
             self.allocator.release(shared)
             raise
         self.slot_pages[slot] = shared + fresh
-        self.sync(t)
+        self.sync(t, slot, "admission")
         return fresh
 
     def grow(self, slot: int, total_pages: int, t: float,
              cause: str = "decode_growth") -> List[int]:
-        """Extend the slot to `total_pages` with fresh private pages.
-        `cause` names the growth ("decode_growth", or "admission" for a
-        chunked-prefill slice) as in the reference, where it tags the energy
-        meter's event; the port has no meter yet, so it changes nothing."""
         have = self.slot_pages[slot]
         extra = total_pages - len(have)
         if extra <= 0:
             return []
         fresh = self.allocator.alloc(extra)
         have.extend(fresh)
-        self.sync(t)
+        self.sync(t, slot, cause)
         return fresh
 
     def cow(self, slot: int, table_idx: int, t: float) -> int:
@@ -441,7 +465,7 @@ class SharedKVLedger:
         self.slot_pages[slot][table_idx] = new
         self.allocator.release([old])
         self._c_cow.inc()
-        self.sync(t)
+        self.sync(t, slot, "cow")
         return new
 
     def retire(self, slot: int, t: float) -> int:
@@ -452,7 +476,8 @@ class SharedKVLedger:
         pages = self.slot_pages.pop(slot)
         pages = list(pages) + self.draft_pages.pop(slot, [])
         freed = self.allocator.release(pages)
-        self.sync(t)
+        self.sync(t, slot)
+        self.slot_meta.pop(slot, None)
         return len(freed)
 
     # ------------------------------------------------- speculative draft lane
@@ -468,7 +493,7 @@ class SharedKVLedger:
             f"slot {slot} already has a draft lane"
         fresh = self.allocator.alloc(n_pages)
         self.draft_pages[slot] = fresh
-        self.sync(t)
+        self.sync(t, slot, "admission")
         return fresh
 
     def grow_draft(self, slot: int, total_pages: int, t: float) -> List[int]:
@@ -478,7 +503,7 @@ class SharedKVLedger:
             return []
         fresh = self.allocator.alloc(extra)
         have.extend(fresh)
-        self.sync(t)
+        self.sync(t, slot, "decode_growth")
         return fresh
 
     def truncate_rows(self, slot: int, n_rows: int, t: float
@@ -506,7 +531,7 @@ class SharedKVLedger:
             freed_d = self.allocator.release(dtail)
             dirty = True
         if dirty:
-            self.sync(t)
+            self.sync(t, slot, "spec_rollback")
         return freed_t, freed_d
 
     def evict_for(self, n_pages: int, t: float) -> int:

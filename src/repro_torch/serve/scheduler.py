@@ -6,19 +6,24 @@ shared by the port's batchers (port of the reference's
 
 `ContinuousBatcher` is the dense reference batcher: each slot holds its own
 batch-1 `max_len` cache and decodes one token per host round trip, exact
-but host-bound; the production path is `serve.paged`. Telemetry timelines,
-SLO percentiles and the energy meter are not ported yet."""
+but host-bound; the production path is `serve.paged`. With an enabled
+`Telemetry` registry it keeps per-request timelines, `serve.dense.*`
+counters, spans and SLO percentiles on its logical clock; with a `meter`
+it mirrors every trace delta to a streaming `obs.energy.BankEnergyMeter`."""
 from __future__ import annotations
 
 import heapq
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Any, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.obs.slo import (RequestTimeline, SLOSummary, SLOTracker,
+                                 attach_energy_percentiles)
+from repro_torch.obs.telemetry import noop_registry
 from repro_torch.sim.trace import AccessStats, OccupancyTrace, TraceBundle
 
 
@@ -97,6 +102,9 @@ class Request:
     finished_wall_s: float = 0.0
     # times this request was preempted and requeued (paged batcher only)
     preemptions: int = 0
+    # lifecycle on the engine's logical clock, stamped when the engine runs
+    # with an enabled Telemetry registry (None otherwise)
+    timeline: Optional[RequestTimeline] = None
 
     @property
     def latency_s(self) -> float:
@@ -147,6 +155,14 @@ class SchedulerStats:
     # prefix-cache reuse (stays zero on engines without a prefix index)
     prefix_hits: int = 0
     prefix_tokens_reused: int = 0
+    # per-request serving SLOs on the logical sim clock (populated when the
+    # engine runs with an enabled Telemetry registry; zero otherwise)
+    ttft_p50_s: float = 0.0
+    ttft_p99_s: float = 0.0
+    tbt_p50_s: float = 0.0
+    tbt_p99_s: float = 0.0
+    e2e_p50_s: float = 0.0
+    e2e_p99_s: float = 0.0
 
 
 class ContinuousBatcher:
@@ -164,7 +180,10 @@ class ContinuousBatcher:
     (`step_time_s` per decode iteration, `prefill_tok_s` per prefilled
     token): every admission, decoded token and retirement is an
     `OccupancyTrace` event, the Stage-I artifact `core.explorer.sweep`
-    consumes (`occupancy_bundle()`)."""
+    consumes (`occupancy_bundle()`). Spans and SLO timelines record on the
+    same logical clock (a passed-in registry has its clock bound here), and
+    a `meter` receives each trace delta tagged with its request and
+    tenant."""
 
     def __init__(self, model, params, *, num_slots: int = 4,
                  max_len: int = 128, kv_dtype_bytes: int = 2,
@@ -173,17 +192,22 @@ class ContinuousBatcher:
                  meter=None):
         if on_long_prompt not in ("reject", "truncate"):
             raise ValueError("on_long_prompt must be 'reject' or 'truncate'")
-        for name, value in (("telemetry", telemetry), ("meter", meter)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet; the port serves without it")
         self.model = model
         self.params = params
         self.num_slots = num_slots
         self.max_len = max_len
         self.on_long_prompt = on_long_prompt
+        # spans/SLOs record on the batcher's logical sim clock, the time base
+        # of the occupancy trace; bind_clock raises if another engine
+        # already owns the registry's clock
+        self.tel = telemetry if telemetry is not None else noop_registry()
+        if telemetry is not None:
+            telemetry.bind_clock(lambda: self._sim_t, owner=self)
+        self._slo = (SLOTracker(self.tel, "serve.dense")
+                     if self.tel.enabled else None)
         self.queue = AdmissionQueue()
         self.slots: List[Optional[Request]] = [None] * num_slots
+        self._tokens_by_rid: Dict[int, int] = {}   # retired, for J/token
         self.stats = SchedulerStats()
         # per-slot batch-1 caches, as the reference keeps them
         self._caches: List[Any] = [None] * num_slots
@@ -202,6 +226,9 @@ class ContinuousBatcher:
             cap = num_slots * (kv_bytes_at(self.cfg, max_len, kv_dtype_bytes)
                                + slot_state_bytes(self.cfg))
         self.trace = OccupancyTrace("kv", cap)
+        # optional streaming BankEnergyMeter: every trace delta below is
+        # mirrored to it with the owning request/tenant tag
+        self.meter = meter
         self.access = AccessStats()
 
     # ------------------------------------------------------------ client API
@@ -217,7 +244,25 @@ class ContinuousBatcher:
                     "on_long_prompt='truncate'")
         req.submitted_wall_s = time.perf_counter()
         req.submitted_s = self._sim_t
+        if self.tel.enabled:
+            req.timeline = RequestTimeline(rid=req.rid, submit_t=self._sim_t)
         self.queue.push(req)
+
+    def slo_summary(self) -> SLOSummary:
+        """TTFT / time-between-tokens / e2e percentiles of retired requests
+        (empty unless constructed with an enabled Telemetry), computed at
+        read time, never per retire."""
+        if self._slo is None:
+            return SLOSummary()
+        s = self._slo.summary()
+        st = self.stats
+        st.ttft_p50_s, st.ttft_p99_s = s.ttft_p50_s, s.ttft_p99_s
+        st.tbt_p50_s, st.tbt_p99_s = s.tbt_p50_s, s.tbt_p99_s
+        st.e2e_p50_s, st.e2e_p99_s = s.e2e_p50_s, s.e2e_p99_s
+        if self.meter is not None:
+            attach_energy_percentiles(s, self.meter.request_energy_j(),
+                                      self._tokens_by_rid)
+        return s
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         done: List[Request] = []
@@ -226,6 +271,8 @@ class ContinuousBatcher:
                 break
             self._admit(done)
             self._step(done)
+        if self._slo is not None:
+            self.slo_summary()           # refresh stats percentiles once
         return done
 
     def occupancy_bundle(self) -> TraceBundle:
@@ -247,9 +294,25 @@ class ContinuousBatcher:
         self.stats.finished += 1
         if self._slot_bytes[i]:
             self.trace.event(self._sim_t, -self._slot_bytes[i], 0)
+            if self.meter is not None:
+                self.meter.record(self._sim_t, -self._slot_bytes[i], 0,
+                                  rid=req.rid, tenant=req.tenant)
             self.stats.retired_kv_bytes += self._slot_bytes[i]
         self._slot_bytes[i] = 0
         self._slot_ctx[i] = 0
+        if self.meter is not None:
+            self._tokens_by_rid[req.rid] = len(req.output)
+            if req.timeline is not None:
+                req.timeline.energy_j = self.meter.request_energy_live(
+                    req.rid)
+        if self.tel.enabled:
+            self.tel.counter("serve.dense.retired").inc()
+            tl = req.timeline
+            if tl is not None:
+                tl.finish_t = self._sim_t
+                self._slo.observe(tl)
+                self.tel.add_span("request", tl.submit_t, self._sim_t,
+                                  rid=req.rid, tokens=len(req.output))
 
     def _admit(self, done: List[Request]) -> None:
         dev = self.model.device
@@ -257,6 +320,7 @@ class ContinuousBatcher:
             if self.slots[i] is not None or not self.queue:
                 continue
             req = self.queue.pop()
+            t_pre = self._sim_t
             tokens = torch.as_tensor(np.asarray(req.tokens)[None, :],
                                      dtype=torch.long, device=dev)
             logits, cache = self.model.prefill(self.params,
@@ -281,8 +345,21 @@ class ContinuousBatcher:
                 self._slot_bytes[i] = b
                 self._slot_ctx[i] = ctx
                 self.trace.event(self._sim_t, b, 0)
+                if self.meter is not None:
+                    self.meter.record(self._sim_t, b, 0, rid=req.rid,
+                                      tenant=req.tenant, cause="admission")
                 self.access.add_write("kv", b)
                 self.stats.admitted_kv_bytes += b
+            if self.tel.enabled:
+                self.tel.counter("serve.dense.admitted").inc()
+                self.tel.counter("serve.dense.prefills").inc()
+                self.tel.add_span("prefill", t_pre, self._sim_t,
+                                  slot=i, rid=req.rid, tokens=ctx)
+                tl = req.timeline
+                if tl is not None:
+                    tl.admit_t = t_pre
+                    tl.first_token_t = self._sim_t
+                    tl.token_ts.append(self._sim_t)
             # the prefill already produced the first new token: retire now
             # if it satisfies the request
             if (req.max_new_tokens <= 1
@@ -305,6 +382,10 @@ class ContinuousBatcher:
             req.output.append(nxt)
             self._next_tok[i] = nxt
             self.stats.decode_steps += 1
+            if self.tel.enabled:
+                self.tel.counter("serve.dense.decode_steps").inc()
+                if req.timeline is not None:
+                    req.timeline.token_ts.append(self._sim_t)
             if self.cfg is not None:
                 # attention reads the whole resident KV, then appends one
                 # row (the bounded cache stops growing at max_len)
@@ -317,6 +398,10 @@ class ContinuousBatcher:
                 if d:
                     self._slot_bytes[i] += d
                     self.trace.event(self._sim_t, d, 0)
+                    if self.meter is not None:
+                        self.meter.record(self._sim_t, d, 0, rid=req.rid,
+                                          tenant=req.tenant,
+                                          cause="decode_growth")
                     self.access.add_write("kv", d)
                     self.stats.admitted_kv_bytes += d
             hit_eos = req.eos_id is not None and nxt == req.eos_id

@@ -1,8 +1,8 @@
 """Discrete-event, cycle-level simulator (TRAPTI Stage I); a copy of the
 reference package's `repro/sim/engine.py`. It is host code by nature: its
 event loop and float arithmetic are the reference's, so its traces equal
-the reference's bit for bit. The port keeps no telemetry registry yet, so
-the run counters the reference folds into one are not kept.
+the reference's bit for bit; each run folds its counters (`sim.des.*`)
+into the port's process-wide telemetry registry, as the reference's does.
 
 List-scheduling DES over the workload graph on the accelerator template:
 
@@ -850,6 +850,14 @@ class Engine:
         assert n_done == len(g.ops), (n_done, len(g.ops))
         wb = sum(m.writebacks for m in mems.values())
         wbb = sum(m.writeback_bytes for m in mems.values())
+        from repro_torch.obs.telemetry import default_registry
+        tel = default_registry()
+        tel.counter("sim.des.runs").inc()
+        tel.counter("sim.des.ops").inc(n_done)
+        tel.counter("sim.des.layers_replayed").inc(replayed)
+        tel.counter("sim.des.writebacks").inc(wb)
+        for reason, k in self.memo_misses.items():
+            tel.counter(f"sim.des.memo_miss.{reason}").inc(k)
         return SimResult(
             graph_name=g.name, accel_name=accel.name, total_time=end_time,
             traces={name: m.trace for name, m in mems.items()},

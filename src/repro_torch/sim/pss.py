@@ -1,5 +1,5 @@
 """Periodic-steady-state (PSS) Stage-I decode fast path; a copy of the
-reference package's `repro/sim/pss.py` (without its telemetry counters).
+reference package's `repro/sim/pss.py`, its `sim.pss.*` counters included.
 
 Decode is a long, highly repetitive memory-bound phase: step t differs from
 step t+1 only in the KV-cache context length, and every tensor size, MAC
@@ -323,7 +323,8 @@ def simulate_decode(cfg, accel: AcceleratorConfig, *, start_ctx: int = 1,
         max_probes = max(16, min(64, steps // 4))
 
     if fidelity == "exact" or steps <= len(probe_ctxs):
-        return _simulate_exact(cfg, accel, name, start_ctx, steps, kw)
+        return _record_decode_sim(
+            _simulate_exact(cfg, accel, name, start_ctx, steps, kw), steps, 0)
 
     cache = {c: StepProbe.run(cfg, accel, c, **kw) for c in probe_ctxs}
     runs = [cache[c] for c in probe_ctxs]
@@ -341,8 +342,30 @@ def simulate_decode(cfg, accel: AcceleratorConfig, *, start_ctx: int = 1,
                     f"or 'exact', or raise max_probes")
             res = _simulate_exact(cfg, accel, name, start_ctx, steps, kw)
             res.fallback_reason = reason
-            return res
-    return _synthesize(accel, name, start_ctx, steps, kw["batch"], runs)
+            return _record_decode_sim(res, steps, len(cache))
+    return _record_decode_sim(
+        _synthesize(accel, name, start_ctx, steps, kw["batch"], runs),
+        steps, len(runs))
+
+
+def _record_decode_sim(res: "DecodeSimResult", steps: int,
+                       n_probes: int) -> "DecodeSimResult":
+    """Fold one simulate_decode outcome into the process-wide registry:
+    how often PSS ran, how many probe DES runs it spent, how many steps it
+    synthesized vs simulated exactly, and the fallbacks it took."""
+    from repro_torch.obs.telemetry import default_registry
+    tel = default_registry()
+    tel.counter("sim.pss.decode_sims").inc()
+    tel.counter("sim.pss.probes").inc(n_probes)
+    if n_probes:
+        tel.counter("sim.pss.brackets").inc(max(n_probes - 1, 0))
+    if res.fallback_reason:
+        tel.counter("sim.pss.fallbacks").inc()
+    if n_probes and not res.fallback_reason:
+        tel.counter("sim.pss.synthesized_steps").inc(steps - n_probes)
+    else:
+        tel.counter("sim.pss.exact_steps").inc(steps)
+    return res
 
 
 def _simulate_exact(cfg, accel: AcceleratorConfig, name: str, start_ctx: int,

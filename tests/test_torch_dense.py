@@ -33,6 +33,7 @@ import repro_torch.configs as tconfigs
 from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
 from repro_torch.models import DecoderLM, init_cache
 from repro_torch.models.attention import decode_valid_mask
+from repro_torch.obs import BankEnergyMeter, Telemetry
 from repro_torch.params import from_jax_params
 from repro_torch.serve import (BatchedServer, ContinuousBatcher,
                                PagedContinuousBatcher, Request,
@@ -190,11 +191,12 @@ def test_dense_batcher_options():
     tm = DecoderLM(tcfg, compute_dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="on_long_prompt"):
         ContinuousBatcher(tm, {}, on_long_prompt="drop")
-    for kw in (dict(telemetry=object()), dict(meter=object())):
-        with pytest.raises(NotImplementedError):
-            ContinuousBatcher(tm, {}, **kw)
-        with pytest.raises(NotImplementedError):
-            BatchedServer(tm, {}, ServeConfig(), **kw)
+    tel, meter = Telemetry(enabled=True), BankEnergyMeter(2**20, 4)
+    cb = ContinuousBatcher(tm, {}, telemetry=tel, meter=meter)
+    assert cb.tel is tel and cb.meter is meter
+    with pytest.raises(RuntimeError, match="already bound"):
+        BatchedServer(tm, {}, ServeConfig(), telemetry=tel)
+    assert BatchedServer(tm, {}, ServeConfig(), meter=meter).meter is meter
     cb = ContinuousBatcher(tm, {}, max_len=8)
     with pytest.raises(ValueError, match="max_len"):
         cb.submit(Request(rid=0, tokens=np.arange(9)))

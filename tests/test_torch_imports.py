@@ -1,8 +1,9 @@
 """The port stands alone: no module of `repro_torch`, and not
 `chip_smoke.py`, imports JAX or the JAX package `repro`, and the package
 imports and runs a CPU prefill + paged decode step, a Stage-I decode
-horizon swept in Stage II, and a prefix-cached, chunked serve of
-shared-prefix traffic, with JAX made unimportable."""
+horizon swept in Stage II, a prefix-cached, chunked serve of shared-prefix
+traffic with telemetry and an energy meter, and a pruned, metered traffic
+campaign, with JAX made unimportable."""
 import ast
 import os
 import subprocess
@@ -69,15 +70,28 @@ sim = simulate_decode(cfg, baseline_accelerator(8), start_ctx=16, steps=8,
                       batch=2, subops=2, fidelity="pss")
 assert sweep(sim, capacities_mib=[1], banks=(1, 4), device="cpu").rows
 import repro_torch.examples.prefix_serving
+from repro_torch.obs import BankEnergyMeter, Telemetry
 from repro_torch.serve import PagedContinuousBatcher, Request
 from repro_torch.traffic import chat_sysprompt, materialize_tokens
 specs = chat_sysprompt(4.0, 2.0, seed=0, prefix_len=20, sharing=4)[:3]
 cb = PagedContinuousBatcher(m, p, num_slots=2, page_size=8, num_pages=24,
                             max_pages_per_slot=11, chunk_steps=4,
-                            prefix_cache=True, prefill_chunk_tokens=16)
+                            prefix_cache=True, prefill_chunk_tokens=16,
+                            telemetry=Telemetry(enabled=True),
+                            meter=BankEnergyMeter(2**20, 4))
 for s, t in zip(specs, materialize_tokens(specs, cfg.vocab_size)):
     cb.submit(Request(rid=s.rid, tokens=t[:80], max_new_tokens=3))
 assert len(cb.run()) == 3 and cb.stats.prefix_hits >= 1
+assert cb.slo_summary().n_requests == 3 and cb.meter.request_energy_j()
+import repro_torch.launch.traffic, repro_torch.launch.obs
+import repro_torch.examples.sla_serving, repro_torch.examples.traffic_gating
+import repro_torch.examples.energy_attribution
+import repro_torch.examples.obs_timeline
+from repro_torch.traffic import run_campaign
+rep = run_campaign(["dsr1d-qwen-1.5b"], horizon_s=2.0, num_slots=2,
+                   max_len=256, banks=(1, 4), device="cpu", prune=True,
+                   meter_spec="4,4")
+assert rep.rows and rep.rows[0].energy is not None
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print("ok")

@@ -14,6 +14,7 @@ from repro.serve import PagedContinuousBatcher as JaxBatcher
 from repro.serve import Request as JaxRequest
 import repro_torch.configs as tconfigs
 from repro_torch.models import DecoderLM
+from repro_torch.obs import BankEnergyMeter, Telemetry
 from repro_torch.params import from_jax_params
 from repro_torch.serve import (OutOfPages, PageAllocator,
                                PagedContinuousBatcher, PagedStats, Request)
@@ -97,16 +98,23 @@ def test_access_stats_are_identical(served):
 
 
 def test_unported_options_raise():
-    """What the port still refuses: telemetry, the energy meter, and (as the
-    reference does, in the same words) speculation on int8 pages. Prefix
-    caching, chunked prefill and priorities are ported and construct
-    (their parity is `test_torch_prefix*.py` and `test_torch_sla*.py`)."""
+    """What the port still refuses: (as the reference does, in the same
+    words) speculation on int8 pages. Prefix caching, chunked prefill,
+    priorities, telemetry and the energy meter are ported and construct
+    (their parity is `test_torch_prefix*.py`, `test_torch_sla*.py` and
+    `test_torch_obs_serve.py`); a registry bound by one batcher refuses a
+    second."""
     cfg = tconfigs.reduced(tconfigs.get_arch("gpt2-xl"), layers=2)
     m = DecoderLM(cfg, compute_dtype=torch.float32, device="cpu")
-    for kw in (dict(speculate_k=2, kv_dtype="int8"), dict(telemetry=object()),
-               dict(meter=object())):
-        with pytest.raises(NotImplementedError):
-            PagedContinuousBatcher(m, {}, **kw, **GEOMETRY)
+    with pytest.raises(NotImplementedError):
+        PagedContinuousBatcher(m, {}, speculate_k=2, kv_dtype="int8",
+                               **GEOMETRY)
+    tel, meter = Telemetry(enabled=True), BankEnergyMeter(2**20, 4)
+    tb = PagedContinuousBatcher(m, {}, telemetry=tel, meter=meter,
+                                **GEOMETRY)
+    assert tb.tel is tel and tb.ledger.meter is meter
+    with pytest.raises(RuntimeError, match="already bound"):
+        PagedContinuousBatcher(m, {}, telemetry=tel, **GEOMETRY)
     with pytest.raises(NotImplementedError, match="int8"):
         PagedContinuousBatcher(m, {}, speculate_k=2, kv_dtype="int8",
                                **GEOMETRY)
