@@ -25,7 +25,15 @@ Stage-II legs on the card held to the same campaigns on the CPU, then the
 CLI once (`traffic`); and the prefix-cached serve again with a telemetry
 registry and a streamed meter, held to the same serve without them, to a
 CPU dry run of its counters, spans and SLO percentiles, and to Stage II
-on its trace (`serve_obs`). It builds the
+on its trace (`serve_obs`); and the other decoder families (`families`,
+`repro_torch.examples.families_serving`): reduced configs of olmoe (MoE),
+recurrentgemma (RG-LRU + sliding-window rings), mamba2 (SSD), internvl2
+(prefix embeddings) and llama4-scout (chunked rings + MoE with a shared
+expert) on the card held to the CPU, then each at full width with random
+bf16 weights through its batchers (llama4-scout cut to 4 of its 48
+layers), launches counted per path against layers x calls, every trace
+swept on the card and held to the CPU sweep, with kernels 7, 1 and 2 held
+to their plain versions at the families' shapes. It builds the
 CUDA kernels from `src/repro_torch/csrc/` first, holds every kernel against
 its plain PyTorch version at its path's shapes, and checks that each path
 launched its kernels (launch counts are set to 0 just before a path and
@@ -52,7 +60,7 @@ The bank kernels are also timed at each decode horizon's own shape.
 Each phase prints one JSON line (device, kernels, reference,
 reference_prefix, serve, stage2, bank_kernels, serve_quant, stage2_quant,
 int8_ffn, serve_spec, serve_dense, serve_prefix, traffic, serve_obs,
-stage1); the last three
+stage1, families_full for each family, families); the last three
 lines are the kernel summary, the card's `nvidia-smi` name and power
 limit, then
 
@@ -62,6 +70,7 @@ Any failed phase raises: the script exits nonzero without that line, as it
 does when no CUDA device is present.
 
 Run from the root of the repository:  python3 chip_smoke.py
+(`--only families` builds the kernels and runs that phase alone.)
 """
 from __future__ import annotations
 
@@ -161,6 +170,13 @@ CAMPAIGNS = {"plain": dict(meter_spec="32,8,0.9,conservative"),
 # requests with 32 new tokens each, a registry and a streamed meter
 OBS_REQUESTS, OBS_NEW_TOKENS = 8, 32
 OBS_METER = "64,16,0.9,conservative"
+# the decoder families (`repro_torch.examples.families_serving.FAMILIES`):
+# each reduced to one or two pattern repetitions for the card-vs-CPU check
+# (recurrentgemma's with its tail block), then at full width
+FAMILY_REDUCED_LAYERS = {"olmoe-1b-7b": 2, "recurrentgemma-2b": 4,
+                         "mamba2-130m": 2, "internvl2-2b": 2,
+                         "llama4-scout-17b-a16e": 4}
+FAMILY_BATCHERS = ("paged", "dense", "batched")
 
 
 def emit(phase: str, **fields) -> None:
@@ -596,7 +612,7 @@ def verify_row(tag, c, args) -> dict:
                 library_ms=None)
 
 
-def dense_row(gen, tag, c, lengths, dtype) -> dict:
+def dense_row(gen, tag, c, lengths, dtype, T: int = DENSE_MAX_LEN) -> dict:
     """The dense decode kernel against its plain version and its split
     mirror on a (B, T, K, d) cache seen as (B, K, T, d); at B > 1 each
     sequence's batch-1 call must give its batch row bit for bit (0.0). The
@@ -606,7 +622,7 @@ def dense_row(gen, tag, c, lengths, dtype) -> dict:
                                                 gqa_decode_ref,
                                                 gqa_decode_split_ref,
                                                 num_splits)
-    B, T = len(lengths), DENSE_MAX_LEN
+    B = len(lengths)
     H, K, d = c.num_heads, c.num_kv_heads, c.head_dim
     q = torch.randn((B, H, d), generator=gen, device="cuda").to(dtype)
     kc, vc = (torch.randn((B, T, K, d), generator=gen, device="cuda").to(
@@ -1711,7 +1727,292 @@ def stage1_phase():
 
 
 # ------------------------------------------------------------------- main
+# ------------------------------------------------------ the decoder families
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _trace_events(engine):
+    """(event times, deltas) of a batcher's "kv" trace (None for
+    `BatchedServer`, which keeps none)."""
+    if not hasattr(engine, "occupancy_bundle"):
+        return None
+    tr = engine.occupancy_bundle().traces["kv"]
+    return list(tr.ev_times), list(tr.ev_dneeded)
+
+
+def _logits_err(a, b) -> float:
+    """Largest |card - CPU| over a list of logits arrays, relative to the
+    CPU logits' magnitude when it exceeds 1."""
+    return max(float(np.abs(x - y).max() / max(1.0, np.abs(y).max()))
+               for x, y in zip(a, b))
+
+
+def _sweep_equal(tag, a, b) -> dict:
+    """A card sweep against the CPU sweep of the same trace: rows equal,
+    e_total within rel 1e-12, transition counts equal."""
+    check([(r.capacity_mib, r.banks) for r in a.rows]
+          == [(r.capacity_mib, r.banks) for r in b.rows],
+          f"{tag}: sweep rows equal the CPU sweep's")
+    rel = max(abs(x.result.e_total / y.result.e_total - 1.0)
+              for x, y in zip(a.rows, b.rows))
+    check(rel <= 1e-12, f"{tag}: sweep e_total rel err {rel}")
+    check(all(x.result.n_transitions == y.result.n_transitions
+              for x, y in zip(a.rows, b.rows)),
+          f"{tag}: sweep transition counts equal")
+    best = a.best()
+    return dict(rows=len(a.rows), e_total_rel_err=rel,
+                best={"capacity_mib": best.capacity_mib, "banks": best.banks,
+                      "e_total_j": best.result.e_total})
+
+
+def family_parity(name: str) -> dict:
+    """A reduced config of one family (FAMILY_REDUCED_LAYERS, float32) on
+    the card against its plain path on the CPU, with the same weights
+    (drawn on the CPU): prefill + 3 decode steps (logits within TOL of
+    their magnitude, greedy tokens equal), then each of the family's
+    batchers: tokens, trace events and Stage-II rows equal, logits within
+    TOL where the batcher collects them."""
+    from repro_torch.examples.families_serving import (
+        FAMILIES, family_config, prefix_embeds_of, prompts_of, serve_family,
+        sweep_trace)
+    from repro_torch.models import DecoderLM
+    from repro_torch.params import init_params
+    cfg = family_config(name, False, FAMILY_REDUCED_LAYERS[name])
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    runs = {"cuda": (DecoderLM(cfg, torch.float32, "cuda"),
+                     _to(cpu_params, "cuda")),
+            "cpu": (DecoderLM(cfg, torch.float32, "cpu"), cpu_params)}
+    prompts = prompts_of(cfg, name, False, SEED)
+    tol = TOL[torch.float32]
+
+    # prefill + 3 decode steps on the dense cache, both driven by the CPU's
+    # greedy tokens
+    batch = {"tokens": np.asarray(prompts[0])[None]}
+    embeds = prefix_embeds_of(cfg, 1, SEED)
+    if embeds is not None:
+        batch["prefix_embeds"] = embeds
+    n_in = len(prompts[0]) + (0 if embeds is None else embeds.shape[1])
+    cache_len = max(n_in + 8, cfg.local_window)
+    logits, caches = {}, {}
+    for dev, (m, p) in runs.items():
+        inp = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        lg, caches[dev] = m.prefill(p, inp, cache_len)
+        logits[dev] = [lg[0, -1].float().cpu().numpy()]
+    for _ in range(3):
+        tok = torch.tensor([[int(np.argmax(logits["cpu"][-1]))]])
+        for dev, (m, p) in runs.items():
+            lg, caches[dev] = m.decode_step(p, caches[dev], tok.to(dev))
+            logits[dev].append(lg[0, -1].float().cpu().numpy())
+    step_err = _logits_err(logits["cuda"], logits["cpu"])
+    check(step_err <= tol, f"{name} reduced: prefill/decode logits on the "
+          f"card vs CPU {step_err}")
+    check([int(np.argmax(x)) for x in logits["cuda"]]
+          == [int(np.argmax(x)) for x in logits["cpu"]],
+          f"{name} reduced: prefill/decode greedy tokens on the card == CPU")
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               kinds=sorted(set(cfg.layer_kinds())),
+               decode_logits_err=step_err)
+    for batcher in FAMILIES[name]["batchers"]:
+        res = {dev: serve_family(m, p, name, batcher, prompts, False,
+                                 collect_logits=True)
+               for dev, (m, p) in runs.items()}
+        a, b = res["cuda"], res["cpu"]
+        tag = f"{name} reduced {batcher}"
+        check(a["outputs"] == b["outputs"],
+              f"{tag}: greedy tokens on the card == CPU")
+        row = dict(requests=len(prompts), tokens=a["tokens"],
+                   tokens_equal=True)
+        if "logits" in a:
+            row["logits_err"] = _logits_err(a["logits"], b["logits"])
+            check(row["logits_err"] <= tol,
+                  f"{tag}: logits {row['logits_err']}")
+        ev = _trace_events(a["engine"])
+        if ev is not None:
+            check(ev == _trace_events(b["engine"]),
+                  f"{tag}: trace events on the card == CPU")
+            row["trace_events"] = len(ev[0])
+            ta = sweep_trace(a["engine"], "cuda")
+            if ta is not None:
+                row["sweep"] = _sweep_equal(
+                    tag, ta, sweep_trace(b["engine"], "cpu"))
+        out[batcher] = row
+    return out
+
+
+def family_full(name: str) -> tuple:
+    """One family at full width (cut in depth where FAMILIES says why) with
+    seeded random bf16 weights, through each of its batchers, launch counts
+    set to 0 just before each and read just after: each kernel's launches
+    must equal the layers x calls the run makes, every request gets its new
+    tokens in the vocabulary, and each trace's card sweep equals the CPU
+    sweep. Returns (fields, summed launches of the paths)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.examples.families_serving import (
+        FAMILIES, family_config, prompts_of, serve_family, sweep_trace)
+    from repro_torch.kernels import build
+    from repro_torch.models import DecoderLM
+    from repro_torch.params import init_params
+    from repro_torch.serve import kv_bytes_at, slot_state_bytes
+    run = FAMILIES[name]
+    cfg = family_config(name, True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, compute_dtype=torch.bfloat16, device="cuda")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               published_layers=get_arch(name).num_layers,
+               cut=run.get("cut"), d_model=cfg.d_model,
+               kinds=sorted(set(cfg.layer_kinds())), dtype="bfloat16",
+               param_bytes=sum(t.numel() * t.element_size()
+                               for t in _leaves(params)),
+               peak_device_bytes_after_init=torch.cuda.max_memory_allocated(),
+               init_s=init_s)
+    prompts = prompts_of(cfg, name, True, SEED)
+    totals = {}
+    for batcher in run["batchers"]:
+        tag = f"{name} full {batcher}"
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        res = serve_family(model, params, name, batcher, prompts, True)
+        counts = build.launch_counts()
+        for k, n in res["expected"].items():
+            check(counts[k] == n, f"{tag}: {k} launches {counts[k]} == "
+                  f"layers x calls {n}")
+        check(all(len(o) == run["new"]
+                  and all(0 <= t < cfg.vocab_size for t in o)
+                  for o in res["outputs"]),
+              f"{tag}: every request has its new tokens, in the vocabulary")
+        eng = res["engine"]
+        row = dict(requests=len(prompts),
+                   prompt_tokens=int(sum(len(p) for p in prompts)),
+                   tokens=res["tokens"], wall_s=res["wall_s"],
+                   tokens_per_s=res["tokens"] / res["wall_s"],
+                   launches={k: counts[k] for k in res["expected"]})
+        for k in res["expected"]:
+            totals[k] = totals.get(k, 0) + counts[k]
+        if hasattr(eng, "occupancy_bundle"):
+            tr = eng.occupancy_bundle().traces["kv"]
+            row["trace_peak_bytes"] = tr.peak_needed()
+            row["trace_events"] = len(tr.ev_times)
+        if batcher == "paged":
+            row.update(page_bytes=eng.page_bytes,
+                       pages_allocated=eng.stats.pages_allocated,
+                       peak_pages=eng.stats.peak_pages)
+            if name == "mamba2-130m":
+                check(eng.page_bytes == 0 and eng.stats.pages_allocated > 0
+                      and eng.stats.admitted_kv_bytes == 0,
+                      f"{tag}: pages allocated at 0 KV bytes")
+        if name == "recurrentgemma-2b":
+            # the rings saturate at the window, the recurrent state is a
+            # fixed per-slot term: the 2048-token prompt's KV never grows
+            W, new = cfg.local_window, run["new"]
+            growth = sum(d > 0 for d in tr.ev_dneeded) - len(prompts)
+            want = sum(max(0, min(len(p) + new - 1, W) - len(p))
+                       for p in prompts)
+            check(growth == want, f"{tag}: decode-growth events {growth} "
+                  f"== tokens decoded below the window {want}")
+            check(kv_bytes_at(cfg, W + new) == kv_bytes_at(cfg, W)
+                  and slot_state_bytes(cfg) > 0,
+                  f"{tag}: KV saturates at local_window, state is fixed")
+            row.update(decode_growth_events=growth,
+                       slot_kv_bytes_at_window=kv_bytes_at(cfg, W),
+                       slot_state_bytes=slot_state_bytes(cfg))
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = sweep_trace(eng, "cuda")
+        if table is not None:
+            torch.cuda.synchronize()
+            row["sweep_s"] = time.perf_counter() - t0
+            bank = build.launch_counts()
+            check(bank["exact_bank_stats"] > 0,
+                  f"{tag}: the sweep launched exact_bank_stats")
+            for k in ("exact_bank_stats", "bank_energy"):
+                totals[k] = totals.get(k, 0) + bank[k]
+            row["sweep"] = dict(_sweep_equal(
+                tag, table, sweep_trace(eng, "cpu")),
+                launches={k: bank[k] for k in ("exact_bank_stats",
+                                                "bank_energy")})
+        out[batcher] = row
+    del model, params, res, eng
+    torch.cuda.empty_cache()
+    return out, totals
+
+
+def family_kernel_rows(gen) -> dict:
+    """Kernels 7, 1 and 2 at the families' shapes, each against its plain
+    version: dense decode on recurrentgemma's local ring (B1, T 2048, d
+    256, K 1, group 10) and on llama4-scout's chunked rings (B4, T 8192,
+    H40 K8 d128); paged decode and prefill at olmoe's H16 K16 d128."""
+    from repro_torch.configs import get_arch
+    rg, l4 = get_arch("recurrentgemma-2b"), get_arch("llama4-scout-17b-a16e")
+    om = get_arch("olmoe-1b-7b")
+    from repro_torch.kernels.paged_gqa_decode import (
+        paged_gqa_decode, paged_gqa_decode_ref, paged_gqa_decode_split_ref)
+    rows = {"gqa_decode": [
+        dense_row(gen, "recurrentgemma-2b local ring", rg,
+                  [rg.local_window], torch.bfloat16, T=rg.local_window),
+        dense_row(gen, "llama4-scout chunked ring", l4,
+                  [528, 316, 144, 80], torch.bfloat16, T=l4.local_window)]}
+    lengths = prompt_lengths()
+    dec_lens = np.r_[1, lengths[1:SLOTS] + NEW_TOKENS // 2]
+    per_slot = -(-(PROMPT_MAX + NEW_TOKENS) // PAGE_SIZE)
+    q, kp, vp, table, lens = decode_case(
+        gen, SLOTS, om.num_heads, om.num_kv_heads, om.head_dim, dec_lens,
+        torch.bfloat16, SLOTS * per_slot + 1)
+    rows["paged_gqa_decode"] = [decode_row(
+        "olmoe-1b-7b", om, paged_gqa_decode, paged_gqa_decode_ref,
+        (q, kp, vp, table, lens), lens, kp.element_size(),
+        paged_gqa_decode_split_ref)]
+    rows["flash_attention"] = [flash_row(gen, "olmoe-1b-7b", om, PROMPT_MAX,
+                                         PROMPT_MIN, torch.bfloat16)]
+    return rows
+
+
+def families_phase(gen) -> tuple:
+    """The decoder families: kernels 7, 1 and 2 at their shapes, the five
+    families reduced on the card against the CPU, then each at full width.
+    Returns (the phase's fields, the summed launches of the full-width
+    paths, the kernel rows)."""
+    t0 = time.perf_counter()
+    krows = family_kernel_rows(gen)
+    parity = {name: family_parity(name) for name in FAMILY_REDUCED_LAYERS}
+    full, launches = {}, {}
+    for name in FAMILY_REDUCED_LAYERS:
+        full[name], counts = family_full(name)
+        emit("families_full", **full[name])
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    fields = dict(
+        reduced=parity, full={n: {k: v for k, v in f.items()
+                                  if k in FAMILY_BATCHERS or k in (
+                                      "layers", "cut", "param_bytes")}
+                              for n, f in full.items()},
+        kernel_rows={k: [{x: r[x] for x in (
+            "shape", "arch", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms") + tuple(
+            x for x in ("device_ms", "library_device_ms") if x in r)}
+            for r in v] for k, v in krows.items()},
+        launches=launches, seconds=time.perf_counter() - t0)
+    return fields, launches, krows
+
+
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=["families"],
+                    help="build the kernels and run this phase alone (no "
+                         "summary, no last line)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
@@ -1744,6 +2045,9 @@ def main() -> None:
          libraries=sorted(p.name for p in libs.values()))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if args.only == "families":
+        emit("families", **families_phase(gen)[0])
+        return
     rows = kernel_phase(gen)
     emit("kernels", **rows)
 
@@ -2026,6 +2330,18 @@ def main() -> None:
     stage1, stage1_launches, horizon_rows = stage1_phase()
     emit("stage1", **stage1)
 
+    # ---- families: MoE, windowed, recurrent and VLM decoders, reduced on
+    # the card against the CPU, then at full width, each path counted ----
+    del model, params
+    torch.cuda.empty_cache()
+    families, fam_launches, fam_rows = families_phase(gen)
+    emit("families", **families)
+
+    def fam_row(r):
+        return {k: r[k] for k in ("shape", "arch", "max_abs_err", "ms",
+                                  "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms") if k in r}
+
     offset = rows["flash_attention_offset"]
     flash = dict(
         rows["flash_attention"][0],
@@ -2042,11 +2358,18 @@ def main() -> None:
                                "offset_device_ms", "library_offset_ms",
                                "library_offset_device_ms", "bound_ms",
                                "bound_by")}))
+    flash.update(families_launches=fam_launches["flash_attention"],
+                 families_rows=[fam_row(r)
+                                for r in fam_rows["flash_attention"]])
     kernels = []
     for name, row in (("paged_gqa_decode",
                        dict(rows["paged_gqa_decode"][0],
                             serve_obs_launches=obs_counts[
-                                "paged_gqa_decode"])),
+                                "paged_gqa_decode"],
+                            families_launches=fam_launches[
+                                "paged_gqa_decode"],
+                            families_rows=[fam_row(r) for r in fam_rows[
+                                "paged_gqa_decode"]])),
                       ("flash_attention", flash),
                       ("paged_gqa_decode_quant",
                        rows["paged_gqa_decode_quant"][0]),
@@ -2059,15 +2382,22 @@ def main() -> None:
                             stage1_launches=stage1_launches[
                                 "exact_bank_stats"],
                             stage1_decode_horizon=horizon_rows[
+                                "exact_bank_stats"],
+                            families_launches=fam_launches[
                                 "exact_bank_stats"])),
                       ("bank_energy",
                        dict(bank_main["bank_energy"], dtype="float64",
                             traffic_launches=traffic_counts["bank_energy"],
                             stage1_launches=stage1_launches["bank_energy"],
                             stage1_decode_horizon=horizon_rows[
-                                "bank_energy"])),
+                                "bank_energy"],
+                            families_launches=fam_launches["bank_energy"])),
                       ("paged_gqa_verify", rows["paged_gqa_verify"][0]),
-                      ("gqa_decode", rows["gqa_decode"][0])):
+                      ("gqa_decode", dict(
+                          rows["gqa_decode"][0],
+                          families_launches=fam_launches["gqa_decode"],
+                          families_rows=[fam_row(r) for r in fam_rows[
+                              "gqa_decode"]]))):
         # rows[...][0] is the main path's dtype (bfloat16)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name],
@@ -2083,7 +2413,9 @@ def main() -> None:
                                          "prefix_serve_launches",
                                          "traffic_launches",
                                          "serve_obs_launches",
-                                         "offset_cases")
+                                         "offset_cases",
+                                         "families_launches",
+                                         "families_rows")
                if key in row}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,7 +3,7 @@ architecture + the shape registry, copied from the reference package's
 `repro/configs/base.py` so that the port imports nothing of it.
 
 The Stage-I workload graphs (`core.workload`) lower every registered config;
-the port's models serve the full-attention ones.
+the port's models serve every decoder-only one (`models.DecoderLM`).
 """
 from __future__ import annotations
 

@@ -1,8 +1,11 @@
-"""Decoder-only LM of the port, for pure full-attention stacks
-(`block_pattern == ("full",)`: dsr1d-qwen-1.5b and gpt2-xl); port of the
-serving entry points of the reference's `repro/models/transformer.py`:
+"""Decoder-only LM of the port, for every decoder family the reference
+serves: dense and MoE full attention (dsr1d-qwen, gpt2-xl, olmoe), chunked
+and full attention with MoE (llama4-scout), sliding-window attention with
+RG-LRU blocks (recurrentgemma), SSD blocks (mamba2) and the VLM prefix
+(internvl2); port of the serving entry points of the reference's
+`repro/models/transformer.py`:
 
-    prefill(params, batch, cache_len)          — prompt forward + dense KV
+    prefill(params, batch, cache_len)          — prompt forward + dense cache
     init_cache(cfg, batch, cache_len)          — dense decode cache
     decode_step(params, cache, tokens)         — one token, dense cache
     init_paged_cache(..., kv_dtype)            — per-layer page pools
@@ -14,29 +17,36 @@ serving entry points of the reference's `repro/models/transformer.py`:
     gather_prefix_pages, prefix_tail_rows, write_shared_prefill_to_pages,
     copy_pages                                 — prefix sharing's page verbs
 
-Parameters keep the reference's tree (`repro_torch.params`): the blocks of
-the single pattern slot are stacked along a leading layer axis, and the
-unstacked `tail` is empty for these configs. Prefill attention runs the
-hand-written flash kernel where the reference runs jnp `blocked_attention`
-(the shared prefill too, through the kernel's query offset);
-paged decode runs the paged GQA kernel, verification the paged verify
-kernel, and dense decode the dense GQA decode kernel (where the reference
-runs a jnp einsum). All dispatch on the tensors' device: the CUDA kernel on
-the card, the plain PyTorch version on the CPU. Pages hold the model dtype,
-another float dtype, fp8 E4M3 codes (uint8) or int8 with per-row float32
-scales (`kv_dtype`, as in the reference).
+Parameters keep the reference's tree (`repro_torch.params`): one stacked
+block dict per slot of the config's block pattern (a leading repetition
+axis), then the unstacked `tail` blocks; layer r * len(pattern) + i is
+repetition r of slot i. Caches follow the same layout ("slots" stacked,
+"tail" unstacked). Full-attention prefill runs the hand-written flash
+kernel where the reference runs jnp `blocked_attention` (the shared prefill
+too, through the kernel's query offset); sliding-window and chunked
+prefill are plain PyTorch, as the reference's are jnp. Paged decode runs
+the paged GQA kernel, verification the paged verify kernel, and dense
+decode the dense GQA decode kernel (where the reference runs a jnp
+einsum), for full-attention caches and the ring caches of local and
+chunked layers alike. RG-LRU and SSD blocks, and the MoE FFN, are plain
+PyTorch (`models/{rglru,ssm,moe}.py`), as the reference's are jnp. All
+kernels dispatch on the tensors' device: the CUDA kernel on the card, the
+plain PyTorch version on the CPU. Pages hold the model dtype, another
+float dtype, fp8 E4M3 codes (uint8) or int8 with per-row float32 scales
+(`kv_dtype`, as in the reference); recurrent state stays dense per slot
+beside them.
 
 Unlike the reference's immutable arrays, caches are updated in place:
 `write_prefill_to_pages`, `write_shared_prefill_to_pages`, `copy_pages`,
 `decode_step_paged`, `verify_step_paged` and `decode_step` write into the
-pools / dense caches and the position, table and liveness tensors they are
-given.
+pools / dense caches / recurrent states and the position, table and
+liveness tensors they are given.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,23 +60,24 @@ from repro_torch.kernels.quant import (FP8_STORAGE_DTYPE,
                                        dequantize_page_rows, from_fp8,
                                        kv_dtype_spec, quantize_page_rows,
                                        to_fp8_codes)
-from repro_torch.models.attention import (cache_write, decode_attention,
-                                          decode_valid_mask, project_qkv)
+from repro_torch.models.attention import (cache_write, chunked_attention,
+                                          decode_attention,
+                                          decode_valid_mask,
+                                          local_attention, project_qkv)
 from repro_torch.models.common import (apply_norm, apply_rope, embed_tokens,
                                        lm_logits)
 from repro_torch.models.ffn import apply_ffn
+from repro_torch.models.moe import apply_moe
+from repro_torch.models.rglru import (apply_rglru_decode, init_rglru_cache,
+                                      rglru_prefill)
+from repro_torch.models.ssm import apply_ssm_decode, init_ssm_cache, \
+    ssm_prefill
+from repro_torch.params import require_decoder
 
 # Page 0 is the null page: retired/inactive slots point their whole table at
 # it, so their masked lanes write and read harmless garbage.
 PAGED_NULL_PAGE = 0
-
-
-def require_full_attention(cfg) -> None:
-    if tuple(cfg.block_pattern) != ("full",) or cfg.moe is not None \
-            or cfg.frontend is not None or cfg.is_encdec:
-        raise NotImplementedError(
-            f"the port runs dense full-attention decoders only; {cfg.name} "
-            f"has pattern {cfg.block_pattern}")
+ATTENTION_KINDS = ("full", "local", "chunked")
 
 
 def layer(blocks: dict, i: int) -> dict:
@@ -75,22 +86,77 @@ def layer(blocks: dict, i: int) -> dict:
             for k, v in blocks.items()}
 
 
+def tail_kinds(cfg) -> List[str]:
+    """The kinds of the unstacked layers past the last whole repetition of
+    the block pattern (recurrentgemma's 26 = 3 x 8 + 2)."""
+    n_rep = cfg.num_layers // len(cfg.block_pattern)
+    return list(cfg.layer_kinds()[n_rep * len(cfg.block_pattern):])
+
+
+def _entry(tree: dict, r: Optional[int]) -> dict:
+    """Repetition `r` of a stacked cache entry (views), or the unstacked
+    entry itself (r None)."""
+    return tree if r is None else {k: v[r] for k, v in tree.items()}
+
+
+def stack_layers(cfg, params: dict, cache: Optional[dict] = None):
+    """The layers in depth order as (kind, params, cache entry or None):
+    every repetition of the pattern's slots, then the tail. Params and
+    cache entries are views into the stacked trees."""
+    pat = cfg.block_pattern
+    n_rep = cfg.num_layers // len(pat)
+    out = []
+    for r in range(n_rep):
+        for i, kind in enumerate(pat):
+            out.append((kind, layer(params["blocks"][i], r),
+                        None if cache is None
+                        else _entry(cache["slots"][i], r)))
+    for j, kind in enumerate(tail_kinds(cfg)):
+        out.append((kind, params["tail"][j],
+                    None if cache is None else cache["tail"][j]))
+    return out
+
+
 def _ffn_residual(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x + apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
+    """x + FFN(norm2(x)); the FFN is the MoE of MoE configs (its aux loss
+    is a training term, dropped here as the reference's serving paths
+    drop it)."""
+    y = apply_norm(cfg, p["norm2"], x)
+    if cfg.moe is not None:
+        return x + apply_moe(cfg, p["ffn"], y)[0]
+    return x + apply_ffn(cfg, p["ffn"], y)
 
 
-def _block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
-    """One block over the whole prompt; returns (x_out, (k, v)) with k, v
-    (B, S, K, h) post-RoPE."""
+def _block_prefill(cfg, kind: str, p: dict, x: torch.Tensor,
+                   positions: torch.Tensor):
+    """One attention block over the whole prompt; returns (x_out, (k, v))
+    with k, v (B, S, K, h) post-RoPE. Full attention runs the prefill
+    kernel; local and chunked attention the plain versions."""
     B, S, _ = x.shape
     y = apply_norm(cfg, p["norm1"], x)
     q, k, v = project_qkv(cfg, p["attn"], y, y)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v).reshape(B, S, cfg.q_dim)
-    x = x + o @ p["attn"]["wo"].to(x.dtype)
+    if kind == "full":
+        o = flash_attention(q, k, v)
+    elif kind == "local":
+        o = local_attention(q, k, v, cfg.local_window)
+    else:
+        o = chunked_attention(q, k, v, cfg.local_window)
+    x = x + o.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
     return _ffn_residual(cfg, p, x), (k, v)
+
+
+def _recurrent_prefill(cfg, kind: str, p: dict, x: torch.Tensor):
+    """An RG-LRU or SSD block over the whole prompt; returns (x_out, its
+    final state: the recurrent state and the conv buffers)."""
+    y = apply_norm(cfg, p["norm1"], x)
+    if kind == "rglru":
+        h, final = rglru_prefill(cfg, p["rec"], y)
+        return _ffn_residual(cfg, p, x + h), final
+    h, final = ssm_prefill(cfg, p["ssm"], y)
+    return x + h, final
 
 
 def _pool_cast(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -176,35 +242,76 @@ def _block_verify_paged(cfg, p: dict, x: torch.Tensor, pools: dict,
     return _ffn_residual(cfg, p, x)
 
 
-def _block_decode(cfg, p: dict, x: torch.Tensor, cache: dict, pos: int,
-                  positions: torch.Tensor,
+def _block_decode(cfg, kind: str, p: dict, x: torch.Tensor, cache: dict,
+                  pos: int, positions: torch.Tensor,
                   lengths: torch.Tensor) -> torch.Tensor:
-    """Dense decode block. x: (B, 1, D); cache: this layer's "k"/"v"
-    (B, T, K, h), written in place at `pos` (clamped to T - 1); positions:
-    (B, 1) the RoPE positions (all `pos`); lengths: (B,) rows to attend."""
+    """Dense decode of an attention block. x: (B, 1, D); cache: this
+    layer's "k"/"v" (B, T, K, h), written in place at `pos` (clamped to
+    T - 1) for a full layer, at `pos % T` for the ring of a local or
+    chunked one; positions: (B, 1) the RoPE positions (all `pos`);
+    lengths: (B,) the valid prefix of the cache to attend."""
     B = x.shape[0]
     y = apply_norm(cfg, p["norm1"], x)
     q, k, v = project_qkv(cfg, p["attn"], y, y)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    ck, cv = cache_write(cache["k"], cache["v"], k, v, pos)
+    T = cache["k"].shape[1]
+    widx = pos if kind == "full" else pos % T
+    ck, cv = cache_write(cache["k"], cache["v"], k, v, widx)
     o = decode_attention(q, ck, cv, lengths)
     x = x + o.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
     return _ffn_residual(cfg, p, x)
 
 
+def _recurrent_decode(cfg, kind: str, p: dict, x: torch.Tensor,
+                      cache: dict) -> torch.Tensor:
+    """Decode step of an RG-LRU or SSD block, batched over the cache's
+    rows; the new state is copied into `cache` in place."""
+    y = apply_norm(cfg, p["norm1"], x)
+    if kind == "rglru":
+        h, new = apply_rglru_decode(cfg, p["rec"], y, cache)
+        x = _ffn_residual(cfg, p, x + h)
+    else:
+        h, new = apply_ssm_decode(cfg, p["ssm"], y, cache)
+        x = x + h
+    for key, val in new.items():
+        cache[key].copy_(val)
+    return x
+
+
+def _slot_cache_len(cfg, kind: str, cache_len: int) -> int:
+    if kind in ("local", "chunked"):
+        return min(cfg.local_window, cache_len)
+    return cache_len
+
+
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                device="cuda") -> Dict[str, Any]:
-    """Dense decode cache: per-layer K/V (stacked over the layers,
-    (L, batch, cache_len, K, h)) and the shared position, as `prefill`
-    returns it."""
-    require_full_attention(cfg)
+    """Dense decode cache, as `prefill` returns it: one entry per pattern
+    slot stacked over the repetitions, the unstacked tail entries, and the
+    shared position. Attention layers hold K/V (batch, T, K, h), T the
+    cache length (a ring of min(local_window, cache_len) rows for local
+    and chunked layers); RG-LRU and SSD layers their recurrent state and
+    conv buffers."""
+    require_decoder(cfg)
     dev = require_device(device)
-    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
-             cfg.head_dim)
-    return {"slots": [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)}],
+    pat = cfg.block_pattern
+    n_rep = cfg.num_layers // len(pat)
+
+    def slot(kind, stack: Optional[int]):
+        lead = () if stack is None else (stack,)
+        if kind in ATTENTION_KINDS:
+            shape = lead + (batch, _slot_cache_len(cfg, kind, cache_len),
+                            cfg.num_kv_heads, cfg.head_dim)
+            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        init = init_rglru_cache if kind == "rglru" else init_ssm_cache
+        c = init(cfg, batch, dtype, dev)
+        return {k: v.expand(lead + v.shape).clone() for k, v in c.items()}
+
+    return {"slots": [slot(k, n_rep) for k in pat],
+            "tail": [slot(k, None) for k in tail_kinds(cfg)],
             "pos": 0}
 
 
@@ -212,26 +319,47 @@ def init_paged_cache(cfg, num_slots: int, num_pages: int, page_size: int,
                      max_pages_per_slot: int, dtype=torch.bfloat16,
                      device="cuda", kv_dtype: Optional[str] = None
                      ) -> Dict[str, Any]:
-    """Paged decode state: per-layer page pools (stacked over the layers,
-    (L, N, K, ps, h)) shared by all slots, one page-table row + true
-    position + liveness flag per slot.
+    """Paged decode state: per-layer page pools ((n_rep, N, K, ps, h) per
+    pattern slot) shared by all slots, one page-table row + true position +
+    liveness flag per slot. Recurrent (SSD / RG-LRU) blocks keep their
+    fixed-size per-slot state dense, batched over the slots: only
+    attention KV grows with context, so only it is paged. Sliding-window
+    and chunked layers are refused, as in the reference.
 
     `kv_dtype` selects the page storage (see `kernels.quant`): None or
     "native" keeps pages in `dtype`; "fp32"/"bf16"/"fp16" force a float
-    dtype; "int8" adds per-row float32 scale pools "ks"/"vs"
-    (L, N, K, ps); "fp8" stores E4M3 codes as uint8."""
-    require_full_attention(cfg)
+    dtype; "int8" adds per-row float32 scale pools "ks"/"vs"; "fp8" stores
+    E4M3 codes as uint8. Recurrent state always stays in `dtype`."""
+    require_decoder(cfg)
+    pat = cfg.block_pattern
+    if any(k in ("local", "chunked") for k in pat):
+        raise NotImplementedError(
+            "paged decode supports full-attention (+ssm/rglru) stacks; "
+            "window-bounded layers gain nothing from paging")
     dev = require_device(device)
     spec = kv_dtype_spec(kv_dtype or "native", native=dtype)
-    shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size,
-             cfg.head_dim)
-    entry = {"kp": torch.zeros(shape, dtype=spec.pool_dtype, device=dev),
-             "vp": torch.zeros(shape, dtype=spec.pool_dtype, device=dev)}
-    if spec.has_scales:
-        entry["ks"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
-        entry["vs"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+    n_rep = cfg.num_layers // len(pat)
+
+    def slot(kind, stack: Optional[int]):
+        lead = () if stack is None else (stack,)
+        if kind == "full":
+            shape = lead + (num_pages, cfg.num_kv_heads, page_size,
+                            cfg.head_dim)
+            e = {"kp": torch.zeros(shape, dtype=spec.pool_dtype, device=dev),
+                 "vp": torch.zeros(shape, dtype=spec.pool_dtype, device=dev)}
+            if spec.has_scales:
+                e["ks"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=dev)
+                e["vs"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=dev)
+            return e
+        init = init_rglru_cache if kind == "rglru" else init_ssm_cache
+        c = init(cfg, num_slots, dtype, dev)
+        return {k: v.expand(lead + v.shape).clone() for k, v in c.items()}
+
     return {
-        "slots": [entry],
+        "slots": [slot(k, n_rep) for k in pat],
+        "tail": [slot(k, None) for k in tail_kinds(cfg)],
         "pos": torch.zeros(num_slots, dtype=torch.int32, device=dev),
         "page_table": torch.full((num_slots, max_pages_per_slot),
                                  PAGED_NULL_PAGE, dtype=torch.int32,
@@ -244,17 +372,29 @@ def write_prefill_to_pages(cfg, paged: dict, dense: dict, slot: int,
                            page_ids: torch.Tensor) -> dict:
     """Admission: scatter a batch=1 dense prefill cache into slot `slot`'s
     freshly allocated pages (cast, fp8-encoded or int8-quantized per row to
-    the pool's format) and rewrite its table row, position and liveness, in
-    place. The dense cache_len must equal
-    len(page_ids) * page_size."""
+    the pool's format), copy its recurrent state into the slot's row, and
+    rewrite its table row, position and liveness, in place. The dense
+    cache_len must equal len(page_ids) * page_size."""
     npg = len(page_ids)
     page_ids = page_ids.to(paged["page_table"].device)
     idx = page_ids.long()
-    for entry, d_entry in zip(paged["slots"], dense["slots"]):
+    pat = cfg.block_pattern
+    entries = ([(k, e, d, True) for k, e, d in
+                zip(pat, paged["slots"], dense["slots"])]
+               + [(k, e, d, False) for k, e, d in
+                  zip(tail_kinds(cfg), paged["tail"], dense["tail"])])
+    for kind, entry, d_entry, stacked in entries:
+        if not stacked:              # treat as a stack of one (views)
+            entry = {k: v[None] for k, v in entry.items()}
+            d_entry = {k: v[None] for k, v in d_entry.items()}
+        if kind != "full":           # recurrent state: the slot's row
+            for key, st in entry.items():
+                st[:, slot] = d_entry[key][:, 0].to(st.dtype)
+            continue
         ps = entry["kp"].shape[-2]
         for pool, scales, x in ((entry["kp"], entry.get("ks"), d_entry["k"]),
                                 (entry["vp"], entry.get("vs"), d_entry["v"])):
-            n, _, T, K, h = x.shape          # (L, 1, npg * ps, K, h)
+            n, _, T, K, h = x.shape          # (n, 1, npg * ps, K, h)
             pages = x.reshape(n, npg, ps, K, h).transpose(2, 3)
             if scales is not None:           # int8: quantize per row
                 q8, s = quantize_page_rows(pages)
@@ -425,54 +565,83 @@ def _block_shared_prefill(cfg, p: dict, x: torch.Tensor,
     return _ffn_residual(cfg, p, x), (k, v)
 
 
+
 @dataclass
 class DecoderLM:
-    """Dense decoder for `block_pattern == ("full",)` configs, computing in
-    `compute_dtype` on `device` (the card unless the caller asks for the
-    CPU)."""
+    """Decoder of any decoder-only config, computing in `compute_dtype` on
+    `device` (the card unless the caller asks for the CPU). Encoder-decoder
+    configs raise `NotImplementedError`."""
     cfg: Any
     compute_dtype: torch.dtype = torch.bfloat16
     device: Any = "cuda"
 
     def __post_init__(self):
-        require_full_attention(self.cfg)
+        require_decoder(self.cfg)
         self.device = require_device(self.device)
 
     def _blocks(self, params: dict):
+        """Per-layer params of a pure full-attention stack (one pattern
+        slot, no tail)."""
         if params["tail"]:
             raise ValueError("pure full-attention stacks have no tail")
         blocks = params["blocks"][0]
         return [layer(blocks, i) for i in range(self.cfg.num_layers)]
 
-    def prefill(self, params: dict, batch: dict, cache_len: int):
-        """batch["tokens"]: (B, S). Returns (last-position logits (B, 1, V),
-        dense cache {"slots": [{"k", "v": (L, B, cache_len, K, h)}],
-        "pos": S}); rows past S are zeros, as in the reference."""
+    def _embed_inputs(self, params: dict, batch: dict):
+        """tokens (+ the frontend's prefix embeds, through the projector)
+        -> (x (B, S, D), positions (S,)). Token positions start after the
+        n_pfx prefix rows, which take positions 0 .. n_pfx - 1."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        B, S = tokens.shape
+        B, S_tok = tokens.shape
+        n_pfx = 0
+        if cfg.frontend is not None and "prefix_embeds" in batch:
+            pfx = torch.as_tensor(batch["prefix_embeds"], device=self.device)
+            n_pfx = pfx.shape[1]
+        positions = torch.arange(n_pfx + S_tok, device=self.device)
+        x = embed_tokens(cfg, params["embed"], tokens,
+                         positions[n_pfx:][None].expand(B, S_tok),
+                         self.compute_dtype)
+        if n_pfx:
+            dt = self.compute_dtype
+            pr = pfx.to(dt) @ params["projector"]["w"].to(dt) \
+                + params["projector"]["b"].to(dt)
+            x = torch.cat([pr, x], dim=1)
+        return x, positions
+
+    def prefill(self, params: dict, batch: dict, cache_len: int):
+        """batch["tokens"]: (B, S) [+ "prefix_embeds" (B, n_pfx, D) for a
+        config with a frontend]. Returns (last-position logits (B, 1, V),
+        the dense cache of `init_cache` filled with the prompt: attention
+        rows past S are zeros, a ring holds the last T positions at slots
+        (S - T + i) % T, recurrent layers their final state, "pos" the
+        prompt length)."""
+        cfg = self.cfg
+        x, positions = self._embed_inputs(params, batch)
+        B, S, _ = x.shape
         if cache_len < S:
             raise ValueError(f"cache_len {cache_len} < prompt length {S}")
-        positions = torch.arange(S, device=self.device)
-        x = embed_tokens(cfg, params["embed"], tokens,
-                         positions[None].expand(B, S), self.compute_dtype)
-        ks, vs = [], []
-        for p in self._blocks(params):
-            x, (k, v) = _block_prefill(cfg, p, x, positions)
-            ks.append(k)
-            vs.append(v)
-
-        def dense(rows):
-            out = torch.zeros((cfg.num_layers, B, cache_len,
-                               cfg.num_kv_heads, cfg.head_dim),
-                              dtype=self.compute_dtype, device=self.device)
-            out[:, :, :S] = torch.stack(rows)
-            return out
-
+        cache = init_cache(cfg, B, cache_len, self.compute_dtype,
+                           self.device)
+        for kind, p, c in stack_layers(cfg, params, cache):
+            if kind in ATTENTION_KINDS:
+                x, (k, v) = _block_prefill(cfg, kind, p, x, positions)
+                T = c["k"].shape[1]
+                if kind == "full" or S <= T:
+                    c["k"][:, :S] = k.to(c["k"].dtype)
+                    c["v"][:, :S] = v.to(c["v"].dtype)
+                else:        # ring: the last T positions at (S - T + i) % T
+                    idx = (S - T + torch.arange(T, device=self.device)) % T
+                    c["k"][:, idx] = k[:, -T:].to(c["k"].dtype)
+                    c["v"][:, idx] = v[:, -T:].to(c["v"].dtype)
+            else:
+                x, final = _recurrent_prefill(cfg, kind, p, x)
+                for key, val in final.items():
+                    c[key].copy_(val)
+        cache["pos"] = S
         x = apply_norm(cfg, params["final_norm"], x)
         logits = lm_logits(cfg, params["embed"], x[:, -1:, :])
-        return logits, {"slots": [{"k": dense(ks), "v": dense(vs)}],
-                        "pos": S}
+        return logits, cache
 
     def prefill_shared(self, params: dict, batch: dict, prefix: dict,
                        pad_to: Optional[int] = None):
@@ -487,9 +656,12 @@ class DecoderLM:
         [{"k", "v": (L, 1, S_suf, K, h)}], "tail": []} for
         `write_shared_prefill_to_pages`). With an empty prefix (m == 0)
         this is a full prefill without the dense cache's padding. `pad_to`:
-        see `_block_shared_prefill`."""
+        see `_block_shared_prefill`. Pure full-attention stacks only."""
         cfg = self.cfg
         _require_pure_full(cfg, "prefill_shared")
+        if "prefix_embeds" in batch:
+            raise NotImplementedError("prefix caching is token-keyed; "
+                                      "frontend prefix embeds unsupported")
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         B, S = tokens.shape
         m = prefix["slots"][0]["k"].shape[2]
@@ -514,18 +686,18 @@ class DecoderLM:
         Returns (logits (num_slots, 1, V), cache), the cache updated in
         place. Each slot embeds/ropes at its own `pos`, writes its K/V row
         through its page-table row, and attends over exactly `pos + 1`
-        tokens. Inactive slots run masked (null page) and their `pos` does
-        not advance."""
+        tokens; recurrent blocks step every slot's dense state. Inactive
+        slots run masked (null page) and their `pos` does not advance."""
         cfg = self.cfg
         pos = cache["pos"]
         page_table = cache["page_table"]
-        entry = cache["slots"][0]
         x = embed_tokens(cfg, params["embed"], tokens.long(), pos[:, None],
                          self.compute_dtype)
-        for i, p in enumerate(self._blocks(params)):
-            x = _block_decode_paged(cfg, p, x,
-                                    {k: v[i] for k, v in entry.items()}, pos,
-                                    page_table)
+        for kind, p, c in stack_layers(cfg, params, cache):
+            if kind == "full":
+                x = _block_decode_paged(cfg, p, x, c, pos, page_table)
+            else:
+                x = _recurrent_decode(cfg, kind, p, x, c)
         cache["pos"] = pos + cache["active"].to(pos.dtype)
         x = apply_norm(cfg, params["final_norm"], x)
         return lm_logits(cfg, params["embed"], x), cache
@@ -533,25 +705,31 @@ class DecoderLM:
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
         """tokens: (B, 1) against a dense cache (`init_cache`, or the one
         `prefill` returns). Returns (logits (B, 1, V), cache), the cache
-        updated in place: every sequence writes its K/V row at `pos` and
-        attends the rows `decode_valid_mask("full", T, pos)` allows, and
-        `pos` advances by one. Past the cache (pos >= T) the write lands on
-        row T - 1 and all T rows are attended, as the reference's clamped
-        `dynamic_update_slice` does."""
+        updated in place: every attention layer writes its K/V row (at
+        `pos` in a linear cache, at `pos % T` in a ring) and attends the
+        rows `decode_valid_mask` allows, recurrent layers step their state,
+        and `pos` advances by one. Past a linear cache (pos >= T) the write
+        lands on row T - 1 and all T rows are attended, as the reference's
+        clamped `dynamic_update_slice` does."""
         cfg = self.cfg
         pos = int(cache["pos"])
-        entry = cache["slots"][0]
         B = tokens.shape[0]
-        T = entry["k"].shape[2]
         positions = torch.full((B, 1), pos, dtype=torch.long,
                                device=self.device)
-        lengths = decode_valid_mask("full", T, pos, self.device).sum(
-            dtype=torch.int32).expand(B)
         x = embed_tokens(cfg, params["embed"], tokens.long(), positions,
                          self.compute_dtype)
-        for i, p in enumerate(self._blocks(params)):
-            x = _block_decode(cfg, p, x, {k: v[i] for k, v in entry.items()},
-                              pos, positions, lengths)
+        lengths = {}
+        for kind, p, c in stack_layers(cfg, params, cache):
+            if kind not in ATTENTION_KINDS:
+                x = _recurrent_decode(cfg, kind, p, x, c)
+                continue
+            T = c["k"].shape[1]
+            if (kind, T) not in lengths:
+                lengths[kind, T] = decode_valid_mask(
+                    kind, T, pos, cfg.local_window, self.device).sum(
+                    dtype=torch.int32).expand(B)
+            x = _block_decode(cfg, kind, p, x, c, pos, positions,
+                              lengths[kind, T])
         cache["pos"] = pos + 1
         x = apply_norm(cfg, params["final_norm"], x)
         return lm_logits(cfg, params["embed"], x), cache
@@ -565,8 +743,11 @@ class DecoderLM:
         `paged_gqa_verify` call per layer; logits[:, v] conditions on
         tokens[:, :v + 1]. Returns (logits (num_slots, V, vocab), cache).
         `pos` is not advanced: the speculative loop moves it by the
-        accepted count, so a rejected suffix rolls back for free."""
+        accepted count, so a rejected suffix rolls back for free. Pure
+        full-attention stacks only: recurrent state cannot un-consume a
+        rejected token."""
         cfg = self.cfg
+        _require_pure_full(cfg, "verify_step_paged")
         pos = cache["pos"]
         page_table = cache["page_table"]
         entry = cache["slots"][0]

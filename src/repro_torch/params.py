@@ -1,8 +1,11 @@
 """Parameters of the port's decoder: the reference's tree, as tensors.
 
 The tree has the reference's keys and shapes (`repro/models/transformer.py`
-`lm_template`): {"embed": {"tok", ["pos"], ["head"]}, "blocks": [stacked
-block dict with a leading layer axis], "tail": [], "final_norm": {...}}.
+`lm_template`): {"embed": {"tok", ["pos"], ["head"]}, "blocks": [one
+stacked block dict per pattern slot, with a leading repetition axis],
+"tail": [unstacked blocks past the last whole repetition], "final_norm":
+{...}, ["projector": {"w", "b"}]}, for every decoder family (attention
+with a dense or MoE FFN, RG-LRU and SSD blocks, the VLM projector).
 
   * `from_jax_params` carries weights across from the reference: its
     `DecoderLM.init` params, brought to numpy (`jax.device_get`), become
@@ -21,10 +24,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import require_device
-from repro_torch.models.transformer import require_full_attention
 
 # leaf spec: (shape, init) with init in normal | embed | zeros | ones
 Spec = Tuple[Tuple[int, ...], str]
+# float32 bytes above which `init_params` draws a stacked leaf slice by slice
+_DRAW_LIMIT = 2 << 30
 
 
 def _norm(cfg) -> Dict[str, Spec]:
@@ -34,21 +38,72 @@ def _norm(cfg) -> Dict[str, Spec]:
     return {"scale": ((d,), "zeros")}       # rmsnorm stores (gain - 1)
 
 
-def _block(cfg) -> Dict[str, Any]:
-    D, Q, KV, F = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
-    attn = {"wq": ((D, Q), "normal"), "wk": ((D, KV), "normal"),
-            "wv": ((D, KV), "normal"), "wo": ((Q, D), "normal")}
+def _attn(cfg) -> Dict[str, Spec]:
+    D, Q, KV = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    t = {"wq": ((D, Q), "normal"), "wk": ((D, KV), "normal"),
+         "wv": ((D, KV), "normal"), "wo": ((Q, D), "normal")}
     if cfg.attn_bias:
-        attn.update(bq=((Q,), "zeros"), bk=((KV,), "zeros"),
-                    bv=((KV,), "zeros"))
-    if cfg.ffn_kind == "swiglu":
-        ffn = {"w_gate": ((D, F), "normal"), "w_up": ((D, F), "normal"),
-               "w_down": ((F, D), "normal")}
-    else:
-        ffn = {"w_up": ((D, F), "normal"), "b_up": ((F,), "zeros"),
-               "w_down": ((F, D), "normal"), "b_down": ((D,), "zeros")}
-    return {"norm1": _norm(cfg), "attn": attn, "norm2": _norm(cfg),
-            "ffn": ffn}
+        t.update(bq=((Q,), "zeros"), bk=((KV,), "zeros"),
+                 bv=((KV,), "zeros"))
+    return t
+
+
+def _ffn(cfg) -> Dict[str, Spec]:
+    D, F = cfg.d_model, cfg.d_ff
+    if cfg.ffn_kind in ("swiglu", "geglu"):
+        return {"w_gate": ((D, F), "normal"), "w_up": ((D, F), "normal"),
+                "w_down": ((F, D), "normal")}
+    return {"w_up": ((D, F), "normal"), "b_up": ((F,), "zeros"),
+            "w_down": ((F, D), "normal"), "b_down": ((D,), "zeros")}
+
+
+def _moe(cfg) -> Dict[str, Any]:
+    m = cfg.moe
+    D, F, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    t = {"router": ((D, E), "normal"), "w_gate": ((E, D, F), "normal"),
+         "w_up": ((E, D, F), "normal"), "w_down": ((E, F, D), "normal")}
+    if m.shared_expert:
+        t["shared"] = {"w_gate": ((D, F), "normal"),
+                       "w_up": ((D, F), "normal"),
+                       "w_down": ((F, D), "normal")}
+    return t
+
+
+def _rglru(cfg) -> Dict[str, Spec]:
+    g = cfg.rglru
+    D = cfg.d_model
+    w = g.lru_width(D)
+    return {"w_branch": ((D, w), "normal"), "w_rec": ((D, w), "normal"),
+            "conv": ((g.conv_width, w), "normal"),
+            "w_a": ((w, w), "normal"), "w_i": ((w, w), "normal"),
+            "lam": ((w,), "ones"), "wo": ((w, D), "normal")}
+
+
+def _ssm(cfg) -> Dict[str, Spec]:
+    s = cfg.ssm
+    D = cfg.d_model
+    di, N, H, cw = s.d_inner(D), s.state_dim, s.num_heads(D), s.conv_width
+    return {"wz": ((D, di), "normal"), "wx": ((D, di), "normal"),
+            "wB": ((D, N), "normal"), "wC": ((D, N), "normal"),
+            "wdt": ((D, H), "normal"), "dt_bias": ((H,), "zeros"),
+            "A_log": ((H,), "ones"), "D": ((H,), "ones"),
+            "conv_x": ((cw, di), "normal"), "conv_B": ((cw, N), "normal"),
+            "conv_C": ((cw, N), "normal"), "norm": ((di,), "zeros"),
+            "wo": ((di, D), "normal")}
+
+
+def _block(cfg, kind: str) -> Dict[str, Any]:
+    """One block's leaves (the reference's `block_template`)."""
+    if kind in ("full", "local", "chunked"):
+        return {"norm1": _norm(cfg), "attn": _attn(cfg),
+                "norm2": _norm(cfg),
+                "ffn": _moe(cfg) if cfg.moe is not None else _ffn(cfg)}
+    if kind == "rglru":
+        return {"norm1": _norm(cfg), "rec": _rglru(cfg),
+                "norm2": _norm(cfg), "ffn": _ffn(cfg)}
+    if kind == "ssm":
+        return {"norm1": _norm(cfg), "ssm": _ssm(cfg)}
+    raise ValueError(kind)
 
 
 def _stacked(tree, n: int):
@@ -58,17 +113,38 @@ def _stacked(tree, n: int):
     return ((n,) + shape, init)
 
 
+def require_decoder(cfg) -> None:
+    """The port runs decoder-only configs; encoder-decoder ones
+    (seamless-m4t) wait for the next slice."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder; the port's next slice "
+            "brings enc-dec (models/encdec.py, cross attention and a "
+            "non-causal prefill kernel)")
+
+
 def param_specs(cfg) -> Dict[str, Any]:
     """The tree of (shape, init) leaves the reference's `lm_template`
-    describes, for a dense full-attention config."""
-    require_full_attention(cfg)
+    describes: one stacked dict per pattern slot (leading axis n_rep =
+    num_layers // len(pattern)), the unstacked tail blocks, and the
+    projector of configs with a frontend."""
+    require_decoder(cfg)
     embed = {"tok": ((cfg.padded_vocab, cfg.d_model), "embed")}
     if cfg.pos_emb == "learned":
         embed["pos"] = ((min(cfg.max_seq_len, 32768), cfg.d_model), "embed")
     if not cfg.tie_embeddings:
         embed["head"] = ((cfg.d_model, cfg.padded_vocab), "normal")
-    return {"embed": embed, "blocks": [_stacked(_block(cfg), cfg.num_layers)],
-            "tail": [], "final_norm": _norm(cfg)}
+    pat = cfg.block_pattern
+    n_rep = cfg.num_layers // len(pat)
+    t = {"embed": embed,
+         "blocks": [_stacked(_block(cfg, k), n_rep) for k in pat],
+         "tail": [_block(cfg, k)
+                  for k in cfg.layer_kinds()[n_rep * len(pat):]],
+         "final_norm": _norm(cfg)}
+    if cfg.frontend is not None:
+        t["projector"] = {"w": ((cfg.d_model, cfg.d_model), "normal"),
+                          "b": ((cfg.d_model,), "zeros")}
+    return t
 
 
 def _map(spec, tree, fn, path=""):
@@ -119,6 +195,15 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
             return torch.ones(shape, dtype=dtype, device=dev)
         std = 0.02 if init == "embed" else 1.0 / math.sqrt(
             max(1, shape[-2] if len(shape) >= 2 else shape[-1]))
+        if len(shape) >= 3 and 4 * math.prod(shape) > _DRAW_LIMIT:
+            # a stacked leaf too large to draw in float32 at once (olmoe's
+            # experts: 8.6 GB) is drawn one leading index at a time
+            out = torch.empty(shape, dtype=dtype, device=dev)
+            for i in range(shape[0]):
+                x = torch.randn(shape[1:], generator=generator,
+                                dtype=torch.float32, device=dev)
+                out[i] = (x * std).to(dtype)
+            return out
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
         return (x * std).to(dtype)

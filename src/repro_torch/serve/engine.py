@@ -98,7 +98,9 @@ class BatchedServer:
 
     def generate(self, batch: Dict[str, Any],
                  max_new_tokens: Optional[int] = None) -> Dict[str, Any]:
-        """batch: {"tokens": (B, S_prompt)}. Returns {"tokens": (B, S_new)
+        """batch: {"tokens": (B, S_prompt)} [+ "prefix_embeds" (B, n_pfx, D)
+        for a config with a frontend], passed whole to the prefill as the
+        reference passes it. Returns {"tokens": (B, S_new)
         int64 numpy, "stats": ServeStats}; with `collect_logits` also
         "logits" (B, S_new, V) float32, the last-position logits that
         produced each emitted token (prefill step included)."""
@@ -109,12 +111,12 @@ class BatchedServer:
             gen = torch.Generator(device=dev).manual_seed(self.cfg.seed)
         tokens = torch.as_tensor(np.asarray(batch["tokens"]),
                                  dtype=torch.long, device=dev)
+        inputs = dict(batch, tokens=tokens)
         stats = ServeStats()
 
         t0 = time.perf_counter()
         with self.tel.span("prefill", tokens=int(tokens.shape[1])):
-            logits, cache = self.model.prefill(self.params,
-                                               {"tokens": tokens},
+            logits, cache = self.model.prefill(self.params, inputs,
                                                self.cfg.max_len)
             _sync(dev)
         stats.prefill_s = time.perf_counter() - t0

@@ -458,6 +458,7 @@ class PagedContinuousBatcher:
             # the port's kernel does not need it (`prefill_shared`)
             self._pad_to = self.max_pages_per_slot * page_size
         if speculate_k is not None:
+            _require_pure_full(self.cfg, "speculate_k")
             if draft_model is None:
                 draft_model, draft_params = self_spec_draft(model, params,
                                                             skip=2)

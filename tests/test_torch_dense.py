@@ -74,8 +74,11 @@ def test_valid_mask_is_the_references():
     for pos in (0, 5, 15, 16, 40):
         np.testing.assert_array_equal(decode_valid_mask("full", 16, pos),
                                       np.asarray(jax_mask("full", 16, pos)))
-    with pytest.raises(NotImplementedError):
-        decode_valid_mask("local", 16, 3)
+        # the rings of sliding-window and chunked layers (window 16)
+        for kind in ("local", "chunked"):
+            np.testing.assert_array_equal(
+                decode_valid_mask(kind, 16, pos, 16),
+                np.asarray(jax_mask(kind, 16, pos, 16)))
 
 
 @pytest.fixture(scope="module", params=ARCHS)
