@@ -33,7 +33,25 @@ expert) on the card held to the CPU, then each at full width with random
 bf16 weights through its batchers (llama4-scout cut to 4 of its 48
 layers), launches counted per path against layers x calls, every trace
 swept on the card and held to the CPU sweep, with kernels 7, 1 and 2 held
-to their plain versions at the families' shapes. It builds the
+to their plain versions at the families' shapes; and the
+encoder-decoder (`encdec`, `repro_torch.examples.encdec_serving`): kernel
+2 without its causal mask at seamless-m4t's encoder (B4 x 1024 over 1024
+rows) and cross (32 over 1024 rows) shapes in both variants and at ragged
+lengths, held to its plain version and bf16 mirror, kernel 7 at the cross
+and self decode shapes held to its split mirror, the reduced model on the
+card against the CPU (encoder output, tokens, logits, KV events), then
+full-width seamless-m4t-large-v2 with random bf16 weights served by
+`BatchedServer` (frames B4 x 1024, prompts 32, 32 new tokens), launches
+counted against layers x calls, its KV trace swept through kernels 3 and
+4 on the card against the CPU; and training (`train`, no kernel of the
+port on this path: the loss runs plain PyTorch as the reference's runs
+jnp): three steps of reduced dsr1d-qwen-1.5b and reduced olmoe (MoE aux
+loss) on the card against the CPU, a preempted `TrainLoop` resumed from
+its checkpoint against the uninterrupted run (bit for bit), then
+full-width tinyllama-1.1b through `launch/train.py`'s entry point (B8 x
+S64, float32, four steps writing one checkpoint, then one more step
+restored from it; checkpoints in temporary directories the phase
+deletes), with the step time and peak memory. It builds the
 CUDA kernels from `src/repro_torch/csrc/` first, holds every kernel against
 its plain PyTorch version at its path's shapes, and checks that each path
 launched its kernels (launch counts are set to 0 just before a path and
@@ -60,7 +78,8 @@ The bank kernels are also timed at each decode horizon's own shape.
 Each phase prints one JSON line (device, kernels, reference,
 reference_prefix, serve, stage2, bank_kernels, serve_quant, stage2_quant,
 int8_ffn, serve_spec, serve_dense, serve_prefix, traffic, serve_obs,
-stage1, families_full for each family, families); the last three
+stage1, families_full for each family, families, encdec, train); the
+last three
 lines are the kernel summary, the card's `nvidia-smi` name and power
 limit, then
 
@@ -70,7 +89,8 @@ Any failed phase raises: the script exits nonzero without that line, as it
 does when no CUDA device is present.
 
 Run from the root of the repository:  python3 chip_smoke.py
-(`--only families` builds the kernels and runs that phase alone.)
+(`--only families`, `--only encdec` or `--only train` builds the kernels
+and runs that phase alone.)
 """
 from __future__ import annotations
 
@@ -177,6 +197,12 @@ FAMILY_REDUCED_LAYERS = {"olmoe-1b-7b": 2, "recurrentgemma-2b": 4,
                          "mamba2-130m": 2, "internvl2-2b": 2,
                          "llama4-scout-17b-a16e": 4}
 FAMILY_BATCHERS = ("paged", "dense", "batched")
+# training: reduced configs held to the CPU (dsr1d, and olmoe for the MoE
+# aux loss), then full-width tinyllama-1.1b (the training CLI's default
+# arch) through the CLI: batch x sequence, steps before the checkpoint
+TRAIN_REDUCED = (ARCH, "olmoe-1b-7b")
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -246,7 +272,7 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def serial_floor_ms(S: int) -> float:
@@ -2006,10 +2032,350 @@ def families_phase(gen) -> tuple:
     return fields, launches, krows
 
 
+def noncausal_row(gen, tag, c, B, S, T, dtype=torch.bfloat16) -> dict:
+    """Kernel 2 without its causal mask (the encoder, cross attention over
+    the memory): every row attends all T keys. Held to the float32 plain
+    version (the row's tolerance) and, in bf16, to the tensor-core mirror
+    (one bf16 step at the output's largest magnitude, each element within
+    one step plus MIRROR_ATOL); ragged S and T masked; two calls give the
+    same bits. The library yardstick is one SDPA call without a mask on
+    heads-major views."""
+    from repro_torch.kernels.flash_attention import (
+        MIRROR_ATOL, bf16_excess, bf16_step, flash_attention,
+        flash_attention_bf16_mirror_ref, flash_attention_ref, variant)
+    H, K, d = c.num_heads, c.num_kv_heads, c.head_dim
+    q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, T, K, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, T, K, d), generator=gen, device="cuda").to(dtype)
+    out = flash_attention(q, k, v, causal=False)
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=False)
+    torch.cuda.synchronize()
+    name = f"flash non-causal {tag} B{B} S{S} T{T} {dtype}"
+    err = max_err(out, ref)
+    check(bool(torch.isfinite(out.float()).all()), f"{name}: finite")
+    check(err <= TOL[dtype], f"{name}: {err}")
+    check(max_err(out, flash_attention(q, k, v, causal=False)) == 0.0,
+          f"{name}: two calls give the same bits")
+    extra = {}
+    if dtype == torch.bfloat16:
+        mirror = flash_attention_bf16_mirror_ref(q, k, v, causal=False)
+        extra = dict(max_abs_err_mirror=max_err(out, mirror),
+                     mirror_step=float(bf16_step(mirror).max()),
+                     mirror_excess=bf16_excess(out, mirror))
+        check(extra["max_abs_err_mirror"] <= extra["mirror_step"],
+              f"{name} vs its bf16 mirror: {extra['max_abs_err_mirror']}")
+        check(extra["mirror_excess"] <= MIRROR_ATOL,
+              f"{name} vs its bf16 mirror: an element strays "
+              f"{extra['mirror_excess']} beyond one bf16 step")
+    isz = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz
+    b_ms, b_by = bound(nbytes, 4.0 * B * H * d * S * T, dtype)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
+              for x in (k, v))
+    return dict(shape=f"B{B} S{S} T{T} H{H} K{K} d{d}", arch=tag,
+                dtype=str(dtype), causal=False, variant=variant(q),
+                max_abs_err=err, tolerance=TOL[dtype], **extra,
+                **timed(lambda: flash_attention(q, k, v, causal=False),
+                        lambda: torch.nn.functional
+                        .scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=False)),
+                plain_ms=cuda_ms(lambda: flash_attention_ref(
+                    q, k, v, causal=False), reps=5),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def encdec_phase(gen) -> tuple:
+    """seamless-m4t on the card (`repro_torch.examples.encdec_serving`):
+    kernel 2 without its mask at the encoder and cross shapes in both
+    variants (and causal at the decoder's), kernel 7 at the cross and self
+    decode shapes; the reduced model on the card against the CPU (encoder
+    output, tokens, logits, KV events, launches); then full width with
+    random bf16 weights served by `BatchedServer`, launches counted against
+    layers x calls, and its KV trace swept through kernels 3 and 4 on the
+    card against the CPU sweep. Returns (fields, the full-width launches,
+    the kernel rows)."""
+    from repro_torch.examples.encdec_serving import (
+        RUNS, config, expected_launches, inputs, serve, sweep_log)
+    from repro_torch.kernels import build
+    from repro_torch.models import EncDecModel
+    from repro_torch.params import init_params
+    t_phase = time.perf_counter()
+    cfg, run = config(True), RUNS[True]
+    B, S_enc, S, new = run["batch"], run["frames"], run["prompt"], run["new"]
+    rows = {
+        "noncausal": [
+            noncausal_row(gen, "seamless encoder", cfg, B, S_enc, S_enc),
+            noncausal_row(gen, "seamless cross", cfg, B, S, S_enc),
+            noncausal_row(gen, "seamless ragged", cfg, B, 37, S_enc - 27),
+            noncausal_row(gen, "seamless encoder", cfg, B, S_enc, S_enc,
+                          torch.float32),
+            noncausal_row(gen, "seamless cross", cfg, B, S, S_enc,
+                          torch.float32)],
+        "causal": flash_row(gen, "seamless-m4t decoder", cfg, 256, S,
+                            torch.bfloat16),
+        "gqa_decode": [
+            dense_row(gen, "seamless cross decode", cfg, [S_enc] * B,
+                      torch.bfloat16, T=S_enc),
+            dense_row(gen, "seamless self decode", cfg,
+                      [S + 1, S + 9, S + 17, S + new - 1], torch.bfloat16,
+                      T=S + new)]}
+
+    # reduced seamless, card against CPU, same weights (drawn on the CPU)
+    small, srun = config(False), RUNS[False]
+    cpu_params = init_params(small, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    frames, tokens = inputs(small, srun, SEED)
+    models = {dev: (EncDecModel(small, torch.float32, dev), p) for dev, p in
+              (("cuda", _to(cpu_params, "cuda")), ("cpu", cpu_params))}
+    enc_err = max_err(*(m.encode(p, frames).cpu()
+                        for m, p in models.values()))
+    check(enc_err <= TOL[torch.float32],
+          f"reduced seamless: encoder output on the card vs CPU {enc_err}")
+    res = {}
+    for dev, (m, p) in models.items():
+        build.reset_launch_counts()
+        res[dev] = serve(m, p, frames, tokens, srun["new"],
+                         collect_logits=True)
+        res[dev]["launches"] = build.launch_counts()
+    check(np.array_equal(res["cuda"]["tokens"], res["cpu"]["tokens"]),
+          "reduced seamless: greedy tokens on the card == CPU")
+    check(res["cuda"]["log"].events == res["cpu"]["log"].events,
+          "reduced seamless: KV trace events on the card == CPU")
+    lerr = _logits_err(list(res["cuda"]["logits"]),
+                       list(res["cpu"]["logits"]))
+    check(lerr <= TOL[torch.float32],
+          f"reduced seamless: logits on the card vs CPU {lerr}")
+    small_want = expected_launches(small, srun["new"])
+    small_counts = {k: res["cuda"]["launches"][k] for k in small_want}
+    check(small_counts == small_want, f"reduced seamless: launches "
+          f"{small_counts} == layers x calls {small_want}")
+    del models, res
+
+    # full width, random bf16 weights
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = EncDecModel(cfg, torch.bfloat16, "cuda")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frames, tokens = inputs(cfg, run, SEED + 2)
+    serve(model, params, frames, tokens, 2)               # warm-up
+    want = expected_launches(cfg, new)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    full = serve(model, params, frames, tokens, new)
+    counts = build.launch_counts()
+    for k, n in want.items():
+        check(counts[k] == n, f"seamless full: {k} launches {counts[k]} "
+              f"== layers x calls {n}")
+    out_tok, st = full["tokens"], full["stats"]
+    check(out_tok.shape == (B, new)
+          and bool(((out_tok >= 0) & (out_tok < cfg.vocab_size)).all()),
+          "seamless full: every sequence has its new tokens, in the "
+          "vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = sweep_log(full["log"], "cuda")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    bank = {k: build.launch_counts()[k]
+            for k in ("exact_bank_stats", "bank_energy")}
+    check(all(bank.values()), f"seamless full: the sweep launched kernels "
+          f"3 and 4 {bank}")
+    swept = dict(_sweep_equal("seamless full", table,
+                              sweep_log(full["log"], "cpu")),
+                 events=len(full["log"].events), sweep_s=sweep_s,
+                 launches=bank)
+    decode_steps = new - 1
+    fields = dict(
+        kernel_rows=rows["noncausal"],
+        causal_row={x: rows["causal"][x] for x in (
+            "shape", "max_abs_err", "max_abs_err_mirror", "mirror_excess",
+            "prefix_max_abs_diff", "ms", "device_ms", "bound_ms")},
+        decode_rows=rows["gqa_decode"],
+        reduced=dict(arch=small.name, layers=small.num_layers,
+                     encoder_layers=small.encoder_layers, **srun,
+                     encoder_max_abs_err=enc_err, tokens_equal=True,
+                     events_equal=True, logits_err=lerr,
+                     launches=small_counts),
+        full=dict(arch=cfg.name, layers=cfg.num_layers,
+                  encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+                  vocab=cfg.vocab_size, dtype="bfloat16", **run,
+                  param_bytes=sum(t.numel() * t.element_size()
+                                  for t in _leaves(params)),
+                  init_s=init_s, prefill_s=st.prefill_s,
+                  decode_s=st.decode_s,
+                  ms_per_decode_step=st.decode_s / decode_steps * 1e3,
+                  decode_tokens_per_s=B * decode_steps / st.decode_s,
+                  tokens_generated=st.tokens_generated,
+                  wall_s=full["wall_s"], peak_device_bytes=peak,
+                  launches={k: counts[k] for k in want}, sweep=swept),
+        seconds=time.perf_counter() - t_phase)
+    del model, params
+    torch.cuda.empty_cache()
+    return fields, dict({k: counts[k] for k in want}, **bank), rows
+
+
+def train_steps(model, params, batches) -> tuple:
+    """One AdamW step of `make_train_step` (constant lr 1e-3) per batch
+    from `params`. Returns (losses, final params)."""
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train import make_train_step
+    opt = AdamW(lr=constant(1e-3))
+    step = make_train_step(model, opt)
+    state = opt.init(params)
+    losses = []
+    for b in batches:
+        params, state, met = step(params, state, b)
+        losses.append(float(met["loss"]))
+    return losses, params
+
+
+def train_phase() -> dict:
+    """Training on the card (no kernel of the port on this path: the loss
+    runs plain PyTorch, as the reference's runs jnp): three steps of
+    reduced dsr1d-qwen-1.5b and of reduced olmoe (its MoE aux loss in the
+    loss) against the same steps on the CPU (losses within rel 1e-4); a
+    preempted `TrainLoop` resumed from its checkpoint against the
+    uninterrupted run (params bit for bit); then full-width tinyllama-1.1b
+    through `launch/train.py`'s entry point (float32 weights, moments and
+    compute, remat none, as the reference's CLI): TRAIN_STEPS steps at
+    B8 x S64 writing one checkpoint, then the CLI again one step further,
+    which restores it and runs one step. Checkpoints go to temporary
+    directories the phase deletes."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import DecoderLM
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.params import init_params
+    from repro_torch.train import LoopConfig, TrainLoop
+    t_phase = time.perf_counter()
+
+    # reduced dsr1d and olmoe: the card against the CPU from the same
+    # weights and batches
+    reduced_rows = []
+    for name in TRAIN_REDUCED:
+        small = reduced(get_arch(name), layers=2)
+        cpu_params = init_params(small, torch.Generator().manual_seed(SEED),
+                                 device="cpu")
+        data = SyntheticTokens(DataConfig(vocab_size=small.vocab_size,
+                                          seq_len=64, global_batch=4,
+                                          seed=SEED))
+        batches = [data.batch_at(i) for i in range(3)]
+        losses = {dev: train_steps(DecoderLM(small, torch.float32, dev),
+                                   _to(cpu_params, dev), batches)[0]
+                  for dev in ("cuda", "cpu")}
+        rel = max(abs(a / b - 1.0) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+        check(rel <= 1e-4, f"reduced {name} train: losses on the card vs "
+              f"CPU rel {rel}")
+        reduced_rows.append(dict(arch=small.name, layers=2, steps=3,
+                                 batch=4, seq=64, moe=small.moe is not None,
+                                 losses_card=losses["cuda"],
+                                 losses_cpu=losses["cpu"],
+                                 loss_rel_err=rel))
+
+    # preemption on the card: fail at step 3, resume from the checkpoint
+    small = reduced(get_arch(ARCH), layers=2)
+    data = SyntheticTokens(DataConfig(vocab_size=small.vocab_size,
+                                      seq_len=64, global_batch=4, seed=SEED))
+    opt = AdamW(lr=constant(1e-3))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        def loop(name, fail_at=None):
+            return TrainLoop(DecoderLM(small, torch.float32, "cuda"), opt,
+                             data, LoopConfig(total_steps=6, ckpt_every=2,
+                                              ckpt_dir=os.path.join(tmp,
+                                                                    name)),
+                             fail_at_step=fail_at)
+        whole = loop("whole").run()
+        failed = False
+        try:
+            loop("preempted", fail_at=3).run()
+        except RuntimeError:
+            failed = True
+        check(failed, "preemption: the injected failure fired")
+        resumed = loop("preempted").run()
+        check(resumed["history"][0]["step"] == 2,
+              "preemption: the resumed run starts at the checkpoint")
+        check(all(torch.equal(a, b) for a, b in zip(
+            _leaves(whole["params"]), _leaves(resumed["params"]))),
+              "preemption: final params on the card equal the "
+              "uninterrupted run's bit for bit")
+        check([h["loss"] for h in whole["history"][2:]]
+              == [h["loss"] for h in resumed["history"]],
+              "preemption: losses after the resume equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # full width: tinyllama-1.1b through the training CLI
+    cfg = get_arch(TRAIN_ARCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH),
+                "--seq", str(TRAIN_SEQ), "--ckpt-every", str(TRAIN_STEPS),
+                "--ckpt-dir", tmp, "--device", "cuda"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train_cli.main(argv + ["--steps", str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        kept = sorted(os.listdir(tmp))
+        check(kept == [f"step_{TRAIN_STEPS:08d}"],
+              f"tinyllama train: one checkpoint written {kept}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(tmp, kept[0], f))
+                         for f in os.listdir(os.path.join(tmp, kept[0])))
+        t0 = time.perf_counter()
+        again = train_cli.main(argv + ["--steps", str(TRAIN_STEPS + 1)])
+        torch.cuda.synchronize()
+        again_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), "tinyllama train: checkpoints deleted")
+    hist, rest = first["history"], again["history"]
+    check([h["step"] for h in hist] == list(range(TRAIN_STEPS))
+          and [h["step"] for h in rest] == [TRAIN_STEPS],
+          "tinyllama train: the second run restored the checkpoint and ran "
+          "one step")
+    losses = [h["loss"] for h in hist + rest]
+    check(all(np.isfinite(x) for x in losses),
+          f"tinyllama train: losses finite {losses}")
+    # the first step also warms up the allocator and autograd
+    step_ms = [h["time_s"] * 1e3 for h in hist + rest]
+    fields = dict(
+        reduced=reduced_rows,
+        preemption=dict(arch=small.name, total_steps=6, ckpt_every=2,
+                        fail_at_step=3, resumed_at=2, params_bit_equal=True,
+                        losses_equal=True),
+        full=dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+                  params=cfg.param_count(), weights="float32",
+                  compute="float32", remat="none", batch=TRAIN_BATCH,
+                  seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
+                  step_ms=step_ms,
+                  median_step_ms=float(np.median(step_ms[1:TRAIN_STEPS])),
+                  tokens_per_s=TRAIN_BATCH * TRAIN_SEQ * 1e3
+                  / float(np.median(step_ms[1:TRAIN_STEPS])),
+                  max_memory_allocated=peak, checkpoint_bytes=ckpt_bytes,
+                  first_run_s=first_s, restore_run_s=again_s,
+                  restored_at=TRAIN_STEPS),
+        seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return fields
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["families"],
+    ap.add_argument("--only", choices=["families", "encdec", "train"],
                     help="build the kernels and run this phase alone (no "
                          "summary, no last line)")
     args = ap.parse_args()
@@ -2047,6 +2413,12 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if args.only == "families":
         emit("families", **families_phase(gen)[0])
+        return
+    if args.only == "encdec":
+        emit("encdec", **encdec_phase(gen)[0])
+        return
+    if args.only == "train":
+        emit("train", **train_phase())
         return
     rows = kernel_phase(gen)
     emit("kernels", **rows)
@@ -2337,6 +2709,13 @@ def main() -> None:
     families, fam_launches, fam_rows = families_phase(gen)
     emit("families", **families)
 
+    # ---- encdec: seamless-m4t served, kernel 2 without its causal mask ----
+    encdec, encdec_launches, encdec_rows = encdec_phase(gen)
+    emit("encdec", **encdec)
+
+    # ---- train: reduced on the card vs CPU, full-width tinyllama CLI ----
+    emit("train", **train_phase())
+
     def fam_row(r):
         return {k: r[k] for k in ("shape", "arch", "max_abs_err", "ms",
                                   "device_ms", "plain_ms", "bound_ms",
@@ -2360,7 +2739,11 @@ def main() -> None:
                                "bound_by")}))
     flash.update(families_launches=fam_launches["flash_attention"],
                  families_rows=[fam_row(r)
-                                for r in fam_rows["flash_attention"]])
+                                for r in fam_rows["flash_attention"]],
+                 encdec_launches=encdec_launches["flash_attention"],
+                 noncausal_cases=[dict(fam_row(r), dtype=r["dtype"],
+                                       variant=r["variant"])
+                                  for r in encdec_rows["noncausal"]])
     kernels = []
     for name, row in (("paged_gqa_decode",
                        dict(rows["paged_gqa_decode"][0],
@@ -2384,6 +2767,8 @@ def main() -> None:
                             stage1_decode_horizon=horizon_rows[
                                 "exact_bank_stats"],
                             families_launches=fam_launches[
+                                "exact_bank_stats"],
+                            encdec_launches=encdec_launches[
                                 "exact_bank_stats"])),
                       ("bank_energy",
                        dict(bank_main["bank_energy"], dtype="float64",
@@ -2391,12 +2776,16 @@ def main() -> None:
                             stage1_launches=stage1_launches["bank_energy"],
                             stage1_decode_horizon=horizon_rows[
                                 "bank_energy"],
-                            families_launches=fam_launches["bank_energy"])),
+                            families_launches=fam_launches["bank_energy"],
+                            encdec_launches=encdec_launches["bank_energy"])),
                       ("paged_gqa_verify", rows["paged_gqa_verify"][0]),
                       ("gqa_decode", dict(
                           rows["gqa_decode"][0],
                           families_launches=fam_launches["gqa_decode"],
                           families_rows=[fam_row(r) for r in fam_rows[
+                              "gqa_decode"]],
+                          encdec_launches=encdec_launches["gqa_decode"],
+                          encdec_rows=[fam_row(r) for r in encdec_rows[
                               "gqa_decode"]]))):
         # rows[...][0] is the main path's dtype (bfloat16)
         kernels.append(dict(
@@ -2415,7 +2804,9 @@ def main() -> None:
                                          "serve_obs_launches",
                                          "offset_cases",
                                          "families_launches",
-                                         "families_rows")
+                                         "families_rows",
+                                         "encdec_launches",
+                                         "noncausal_cases", "encdec_rows")
                if key in row}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

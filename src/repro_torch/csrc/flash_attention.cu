@@ -1,4 +1,4 @@
-// Causal prefill attention (GQA) for Hopper.
+// Prefill attention (GQA) for Hopper, causal or not.
 //
 // Replaces repro/kernels/flash_attention/kernel.py flash_attention_kernel
 // (_flash_kernel), and with it the jnp blocked_attention the reference
@@ -10,7 +10,11 @@
 // plain prefill has q_offset 0; a shared or chunked prefill passes the
 // m rows already cached (the prefix's keys first in k/v, then the suffix's)
 // and computes only the S suffix rows, as the reference's
-// blocked_attention(..., q_offset=m) does. Output in the input dtype.
+// blocked_attention(..., q_offset=m) does. With causal = 0 (q_offset 0)
+// every query row attends all T keys, for any S and T: the encoder's
+// self-attention, and the decoder's cross attention over the encoder
+// memory (S != T), as the reference's flash_attention(causal=False) and
+// blocked_attention(causal=False) do. Output in the input dtype.
 //
 // Bound on the H100: at prefill lengths of hundreds of tokens the work is
 // O(S^2 d) multiply-adds per head against O(S d) bytes, so it is bound by
@@ -21,7 +25,8 @@
 // (FlashAttention-2 layout):
 //   * one block of four warps per (64-query-row tile, head, batch), each
 //     warp owning 16 query rows; the diagonal-most (heaviest) query tiles
-//     are launched first, since causal work grows with the tile index;
+//     are launched first, since causal work grows with the tile index
+//     (without the mask every tile walks all T keys);
 //   * Q K^T and P V through mma.sync m16n8k16 (bf16 in, float32 out), with
 //     fragments read by ldmatrix (.trans for V) from bf16 tiles in shared
 //     memory whose rows are padded by 16 bytes, so ldmatrix is free of
@@ -46,7 +51,7 @@
 //
 // Both walk a query row's KV tiles in a fixed order from key 0 upward up
 // to the block's last visible key (tiles above the causal diagonal are
-// never loaded), so a row's reduction order depends neither on the prompt
+// never loaded; without the mask the last key is T - 1), so a row's reduction order depends neither on the prompt
 // length nor on the query offset: row r of a prompt equals row r of any
 // longer prompt with the same prefix, and the rows of an offset-m call
 // equal rows m.. of the offset-0 call over the same keys, bit for bit. A masked score is -1e30 and gives p = 0, so a
@@ -67,7 +72,7 @@ template <typename T, int DC>  // DC: head dims per lane, d <= 32 * DC
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int S, int Tk,
-                 int H, int K, int d, int q_off, float scale) {
+                 int H, int K, int d, int q_off, int causal, float scale) {
   extern __shared__ float smem[];
   const int ld = d + 1;  // padded row stride of the K/V tiles
   float* q_sh = smem;               // kBQ * d
@@ -96,7 +101,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int q_last = min(q0 + kBQ, S) - 1;
   // keys beyond are above the diagonal of the block's last row
-  const int k_end = min(q_off + q_last + 1, Tk);
+  const int k_end = causal ? min(q_off + q_last + 1, Tk) : Tk;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile is consumed (and q_sh is written)
     for (int i = tid; i < kBK * d; i += kWarps * 32) {
@@ -128,7 +133,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int qs = q0 + warp * kRowsPerWarp + r;
-      const float sv = (t < Tk && t <= q_off + qs) ? s[r] : kNegInf;
+      const float sv =
+          (t < Tk && (!causal || t <= q_off + qs)) ? s[r] : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(sv));
       const float p = sv <= kNegInf / 2 ? 0.f : expf(sv - m_new);
       const float corr = expf(m[r] - m_new);
@@ -166,7 +172,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int S, int Tk, int H, int K, int d, int q_off,
-                   float scale, cudaStream_t stream) {
+                   int causal, float scale, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   const size_t smem = (kBQ * d + 2 * kBK * (d + 1)) * sizeof(float);
   const T* qp = static_cast<const T*>(q);
@@ -174,11 +180,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
   if (d <= 32)
-    flash_fwd_kernel<T, 1><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, q_off, scale);
+    flash_fwd_kernel<T, 1><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, q_off, causal, scale);
   else if (d <= 64)
-    flash_fwd_kernel<T, 2><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, q_off, scale);
+    flash_fwd_kernel<T, 2><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, q_off, causal, scale);
   else if (d <= 128)
-    flash_fwd_kernel<T, 4><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, q_off, scale);
+    flash_fwd_kernel<T, 4><<<grid, kWarps * 32, smem, stream>>>(qp, kp, vp, op, S, Tk, H, K, d, q_off, causal, scale);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -271,7 +277,8 @@ template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ out, int S,
-                int Tk, int H, int K, int q_off, float scale_log2) {
+                int Tk, int H, int K, int q_off, int causal,
+                float scale_log2) {
   static_assert(kBQ == kBK, "query and KV tiles share load_tile");
   constexpr int kLd = D + kPad;
   constexpr int kDT = D / 8;  // 8-wide output column tiles per row
@@ -293,7 +300,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vg = v + (static_cast<size_t>(b) * Tk * K + kh) * D;
 
   // keys beyond are above the diagonal of the block's last row
-  const int k_end = min(q_off + min(q0 + kBQ, S), Tk);
+  const int k_end = causal ? min(q_off + min(q0 + kBQ, S), Tk) : Tk;
   const int ntiles = (k_end + kBK - 1) / kBK;
 
   load_tile<D>(q_sh, qg, q0, S, q_stride, tid);
@@ -359,8 +366,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int t = k0 + nt * 8 + c2 + (e & 1), r = e >> 1;
-        const float x =
-            (t <= pos[r] && t < Tk) ? s[nt][e] * scale_log2 : kNegInf;
+        const float x = ((!causal || t <= pos[r]) && t < Tk)
+                            ? s[nt][e] * scale_log2
+                            : kNegInf;
         s[nt][e] = x;
         tmax[r] = fmaxf(tmax[r], x);
       }
@@ -437,7 +445,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int Tk, int H, int K, int q_off,
+                   int B, int S, int Tk, int H, int K, int q_off, int causal,
                    float scale_log2, cudaStream_t stream) {
   const int smem = (kBQ + 4 * kBK) * (D + kPad) * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
@@ -447,7 +455,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_tc_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), S, Tk, H, K,
-      q_off, scale_log2);
+      q_off, causal, scale_log2);
   return cudaGetLastError();
 }
 
@@ -456,29 +464,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q: (B, S, H, d); k, v: (B, T, K, d); out: (B, S, H, d); all contiguous,
-// dtype 0 = float32, 1 = bfloat16; d <= 128; query row s attends keys
-// t <= q_offset + s (q_offset >= 0). tensor_cores = 0 runs the
+// dtype 0 = float32, 1 = bfloat16; d <= 128; with causal = 1 query row s
+// attends keys t <= q_offset + s (q_offset >= 0), with causal = 0 all T
+// keys (q_offset 0). tensor_cores = 0 runs the
 // CUDA-core kernel with scale = 1/sqrt(d); 1 runs the tensor-core kernel
 // (bfloat16, d 64 or 128, every pointer 16-byte aligned) with
 // scale = log2(e)/sqrt(d).
 TRAPTI_EXPORT int flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int T, int H, int K, int d,
-                                      int q_offset, float scale, int dtype,
+                                      int q_offset, int causal, float scale,
+                                      int dtype,
                                       int tensor_cores, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (tensor_cores) {
     if (dtype == kBF16 && d == 64)
-      err = tc::launch<64>(q, k, v, out, B, S, T, H, K, q_offset, scale, s);
+      err = tc::launch<64>(q, k, v, out, B, S, T, H, K, q_offset, causal,
+                           scale, s);
     else if (dtype == kBF16 && d == 128)
-      err = tc::launch<128>(q, k, v, out, B, S, T, H, K, q_offset, scale,
-                            s);
+      err = tc::launch<128>(q, k, v, out, B, S, T, H, K, q_offset, causal,
+                            scale, s);
   } else if (dtype == kF32) {
-    err = launch<float>(q, k, v, out, B, S, T, H, K, d, q_offset, scale, s);
+    err = launch<float>(q, k, v, out, B, S, T, H, K, d, q_offset, causal,
+                        scale, s);
   } else if (dtype == kBF16) {
     err = launch<__nv_bfloat16>(q, k, v, out, B, S, T, H, K, d, q_offset,
-                                scale, s);
+                                causal, scale, s);
   }
   return static_cast<int>(err);
 }

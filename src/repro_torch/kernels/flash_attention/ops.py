@@ -1,15 +1,16 @@
-"""Causal prefill attention: hand-written CUDA kernels on the card, the
-plain version on the CPU.
+"""Prefill attention, causal or not: hand-written CUDA kernels on the card,
+the plain version on the CPU.
 
 Replaces the reference's prefill attention: the Pallas
 `flash_attention_kernel` (`repro/kernels/flash_attention/kernel.py`) and
 the jnp `blocked_attention` the reference prefill runs
-(`repro/models/attention.py`), which compute the same function. Unlike the
-Pallas kernel (which asserts S % block == 0) it takes ragged prompt lengths
-by masking, and a query offset (`q_offset`, the reference's
-`blocked_attention(..., q_offset=m)`) for the suffix rows of a shared or
-chunked prefill. Source: `csrc/flash_attention.cu`, which holds two
-kernels."""
+(`repro/models/attention.py`), which compute the same function, causal (the
+decoder's prefill) or not (`causal=False`: the encoder, and cross attention
+over the encoder memory). Unlike the Pallas kernel (which asserts S % block
+== 0) it takes ragged lengths by masking, and a query offset (`q_offset`,
+the reference's `blocked_attention(..., q_offset=m)`) for the suffix rows
+of a shared or chunked prefill. Source: `csrc/flash_attention.cu`, which
+holds two kernels."""
 from __future__ import annotations
 
 import ctypes
@@ -29,8 +30,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = build.register(build.CudaKernel(
     "flash_attention", "flash_attention", "flash_attention_fwd",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
-     _P]))
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+     _I, _P]))
 
 
 def variant(q: torch.Tensor) -> str:
@@ -48,12 +49,14 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_offset: int = 0) -> torch.Tensor:
-    """Causal attention. q: (B, S, H, h); k, v: (B, T, K, h), H % K == 0;
+                    q_offset: int = 0, causal: bool = True) -> torch.Tensor:
+    """Attention. q: (B, S, H, h); k, v: (B, T, K, h), H % K == 0. Causal:
     query row s sits at absolute position q_offset + s and attends keys
     t <= q_offset + s (T >= q_offset + S in the shared prefill, whose keys
-    are the m = q_offset cached rows followed by the S suffix rows).
-    Returns (B, S, H, h) in q's dtype.
+    are the m = q_offset cached rows followed by the S suffix rows). Not
+    causal (`causal=False`, q_offset 0): every row attends all T keys, for
+    any S and T (the encoder; cross attention over the encoder memory), no
+    key tile skipped. Returns (B, S, H, h) in q's dtype.
 
     The kernels walk key tiles from key 0 whatever the offset, so rows at
     offset m equal rows m.. of the offset-0 call over the same keys, bit
@@ -68,8 +71,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the CPU it runs `flash_attention_ref`."""
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    if q_offset and not causal:
+        raise ValueError("q_offset applies to causal attention only")
     if q.device.type != "cuda":
-        return flash_attention_ref(q, k, v, q_offset)
+        return flash_attention_ref(q, k, v, q_offset, causal)
     B, S, H, d = q.shape
     T, K = k.shape[1], k.shape[2]
     if k.shape != (B, T, K, d) or v.shape != k.shape or H % K:
@@ -91,6 +96,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return out
     KERNEL(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), B, S, T,
-           H, K, d, int(q_offset), scale, DTYPES[q.dtype], int(tc),
-           build.stream_ptr(q))
+           H, K, d, int(q_offset), int(causal), scale, DTYPES[q.dtype],
+           int(tc), build.stream_ptr(q))
     return out

@@ -1,11 +1,11 @@
-"""Plain PyTorch versions of the causal prefill attention kernels.
+"""Plain PyTorch versions of the prefill attention kernels.
 
 `flash_attention_ref` is the same function as the reference's
-`flash_attention_ref` and jnp `blocked_attention` (causal, with its query
-offset), in the layout the model uses: q (B, S, H, h), k/v (B, T, K, h) with
-H % K == 0; query head h reads KV head h // (H // K); query row s attends
-keys t <= q_offset + s. Full float32 softmax; output in q's dtype. The
-wrapper runs it on the CPU.
+`flash_attention_ref` and jnp `blocked_attention` (causal with its query
+offset, or not), in the layout the model uses: q (B, S, H, h), k/v
+(B, T, K, h) with H % K == 0; query head h reads KV head h // (H // K);
+causal, query row s attends keys t <= q_offset + s, else all T keys. Full
+float32 softmax; output in q's dtype. The wrapper runs it on the CPU.
 
 `flash_attention_bf16_mirror_ref` repeats the arithmetic of the bf16
 tensor-core kernel (`csrc/flash_attention.cu`, `flash_tc_kernel`), and is
@@ -31,7 +31,10 @@ MIRROR_ATOL = 2.0 ** -10
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        q_offset: int = 0) -> torch.Tensor:
+                        q_offset: int = 0,
+                        causal: bool = True) -> torch.Tensor:
+    if q_offset and not causal:
+        raise ValueError("q_offset applies to causal attention only")
     B, S, H, d = q.shape
     T, K = k.shape[1], k.shape[2]
     group = H // K
@@ -41,16 +44,19 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bshd,bthd->bhst", qf, kf)
     mask = (torch.arange(S, device=q.device)[:, None] + q_offset
             >= torch.arange(T, device=q.device)[None, :])
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    if causal:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhst,bthd->bshd", p, vf).to(q.dtype)
 
 
 def flash_attention_bf16_mirror_ref(q: torch.Tensor, k: torch.Tensor,
                                     v: torch.Tensor,
-                                    q_offset: int = 0) -> torch.Tensor:
+                                    q_offset: int = 0,
+                                    causal: bool = True) -> torch.Tensor:
     """The tensor-core kernel's arithmetic: KV tiles of 64 keys walked from
-    key 0 upward, query row s at position q_offset + s; float32 scores of
+    key 0 upward, query row s at position q_offset + s (`causal=False`: all
+    T keys); float32 scores of
     the bf16 operands, scaled by log2(e) / sqrt(h) in float32; a masked
     score is -1e30 and gives p = 0; an online softmax in base 2 with
     float32 m, l and accumulators; P rounded to bf16 for P·V; the
@@ -75,7 +81,8 @@ def flash_attention_bf16_mirror_ref(q: torch.Tensor, k: torch.Tensor,
         ks = slice(j * KV_TILE, (j + 1) * KV_TILE)
         s = torch.einsum("bskgd,btkd->bskgt", qd, kd[:, ks]).float() * c
         keys = torch.arange(ks.start, ks.stop, device=q.device)[None, :]
-        valid = ((keys <= rows) & (keys < T))[None, :, None, None, :]
+        valid = (((keys <= rows) | (not causal))
+                 & (keys < T))[None, :, None, None, :]
         s = torch.where(valid, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp2(s - m_new[..., None])

@@ -1,16 +1,22 @@
 """Attention pieces of the port (reference: `repro/models/attention.py`).
 
 Full attention runs in the hand-written kernels: `kernels.flash_attention`
-for prefill, `kernels.paged_gqa_decode` and `kernels.paged_gqa_verify` on
-paged caches, `kernels.gqa_decode` on the dense decode cache, the ring
-caches of sliding-window ("local") and chunked layers included. The
-prefill of local and chunked layers is plain PyTorch, as the reference's
-is jnp (`local_attention`, `chunked_attention`). The Q/K/V/O projections
-are plain matrix products."""
+for prefill (causal), for the encoder and for cross attention over the
+encoder memory (not causal), `kernels.paged_gqa_decode` and
+`kernels.paged_gqa_verify` on paged caches, `kernels.gqa_decode` on the
+dense decode cache, the ring caches of sliding-window ("local") and
+chunked layers included. The prefill of local and chunked layers is plain
+PyTorch, as the reference's is jnp (`local_attention`,
+`chunked_attention`). The training losses run `blocked_attention`, the
+plain differentiable version of kernel 2, on every device: the
+reference's loss runs jnp `blocked_attention` too, and the port has no
+backward kernel yet. The Q/K/V/O projections are plain matrix products."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
 from repro_torch.kernels.gqa_decode import gqa_decode
 
 NEG_INF = -1.0e30
@@ -92,6 +98,25 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bcskgt,bctkh->bcskgh", p, v2)
     return out.reshape(B, S, H, h).to(q.dtype)
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True) -> torch.Tensor:
+    """Full attention in plain PyTorch, which autograd differentiates, on
+    any device: kernel 2's plain version (`flash_attention_ref`), the
+    function of the reference's jnp `blocked_attention`. The training
+    losses call it by name; serving runs kernel 2."""
+    return flash_attention_ref(q, k, v, causal=causal)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Attention without a mask: every query row attends all T rows. The
+    encoder-decoder's cross attention over the memory and its encoder's
+    self-attention. q: (B, S, H, h); k, v: (B, T, K, h), any S and T. The
+    reference runs `blocked_attention(causal=False)`; the port runs kernel
+    2 without its causal mask."""
+    return flash_attention(q, k, v, causal=False)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

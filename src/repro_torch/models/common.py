@@ -1,5 +1,7 @@
-"""Shared model building blocks of the port: norms, RoPE, embeddings and the
-LM head (port of the reference's `repro/models/common.py`).
+"""Shared model building blocks of the port: norms, RoPE, embeddings, the
+LM head and the training loss's cross entropy (port of the reference's
+`repro/models/common.py`), and `checkpointed`, the reference's `remat`
+policies on `torch.utils.checkpoint`.
 
 Parameters are plain dictionaries of tensors with the reference's keys and
 shapes (`repro_torch.params`). Norms and RoPE compute in float32 and return
@@ -8,6 +10,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -84,3 +88,57 @@ def lm_logits(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """`jax.nn.gelu`'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean cross entropy over the positions whose label is not
+    `ignore_id`, in float32; logits (..., V), labels (...) integer."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat "dots": keep the outputs of
+    matrix products without batch dimensions, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(remat: str, fn):
+    """`fn` under the reference's `remat` policy (`jax.checkpoint` in
+    `repro/models/transformer.py`), on `torch.utils.checkpoint`:
+
+      * "none": `fn` itself; autograd keeps every activation;
+      * "full": `checkpoint(fn)`: only `fn`'s inputs are kept, and its
+        forward runs again in the backward;
+      * "dots": selective checkpointing that keeps the outputs of aten
+        `mm`/`addmm` (the weight products: `x @ W` on a (B, S, D)
+        activation runs as one mm) and recomputes the rest. JAX's
+        `checkpoint_dots_with_no_batch_dims` keeps every dot_general
+        without batch dimensions of the traced, rewritten graph; torch
+        decides per operator at dispatch, so the saved set is the same
+        in intent (weight products kept, attention's batched products
+        recomputed) but not guaranteed equal op for op.
+
+    Values and gradients are the same under every mode; only memory and
+    time differ. Outside grad mode `fn` runs as it is."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+    if remat == "none":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {}
+        if remat == "dots":
+            kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+                _save_weight_products)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run

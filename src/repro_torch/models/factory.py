@@ -1,24 +1,25 @@
 """Model factory and concrete input batches; port of the reference's
-`repro/models/factory.py` for the decoder families. Encoder-decoder
-configs (seamless-m4t) raise `NotImplementedError` until the port's
-enc-dec slice; the abstract dry-run inputs (`batch_struct`,
-`cache_struct`) come with the dry-run CLI."""
+`repro/models/factory.py`: a `DecoderLM` for every decoder-only config, an
+`EncDecModel` for an encoder-decoder one (seamless-m4t). The abstract
+dry-run inputs (`batch_struct`, `cache_struct`) come with the dry-run
+CLI."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.transformer import DecoderLM
-from repro_torch.params import require_decoder
 
 
-def build_model(cfg, *, compute_dtype=torch.bfloat16,
-                device="cuda") -> DecoderLM:
-    """The model class of `cfg`: a `DecoderLM` for every decoder-only
-    config, on `device` (the card unless the caller asks for the CPU)."""
-    require_decoder(cfg)
-    return DecoderLM(cfg, compute_dtype=compute_dtype, device=device)
+def build_model(cfg, *, compute_dtype=torch.bfloat16, remat: str = "full",
+                device="cuda"):
+    """The model class of `cfg` on `device` (the card unless the caller asks
+    for the CPU): `EncDecModel` for an encoder-decoder config, else
+    `DecoderLM`; `remat` is the loss's activation checkpointing."""
+    cls = EncDecModel if cfg.is_encdec else DecoderLM
+    return cls(cfg, compute_dtype=compute_dtype, device=device, remat=remat)
 
 
 def concrete_batch(cfg, shape_kind: str, batch: int, seq: int,
@@ -26,15 +27,18 @@ def concrete_batch(cfg, shape_kind: str, batch: int, seq: int,
                    ) -> Dict[str, Any]:
     """A small concrete batch for smoke runs, on the CPU: random tokens
     (B, seq) from `generator` (a CPU one), labels equal to the tokens for
-    "train"; a config with a frontend gets `num_prefix_tokens` random bf16
-    prefix embeddings and seq - n_pfx tokens (at least 1). The numbers
+    "train"; an encoder-decoder config also gets random bf16 frames
+    (B, seq, d_model), a config with a frontend `num_prefix_tokens` random
+    bf16 prefix embeddings and seq - n_pfx tokens (at least 1). The numbers
     differ from the reference's, which draws them from a JAX key."""
-    require_decoder(cfg)
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(0)
     d: Dict[str, Any] = {}
     s_tok = seq
-    if cfg.frontend is not None:
+    if cfg.is_encdec:
+        d["frames"] = torch.randn((batch, seq, cfg.d_model),
+                                  generator=gen).to(torch.bfloat16)
+    elif cfg.frontend is not None:
         n_pfx = cfg.frontend.num_prefix_tokens
         d["prefix_embeds"] = torch.randn(
             (batch, n_pfx, cfg.d_model), generator=gen).to(torch.bfloat16)

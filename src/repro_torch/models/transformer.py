@@ -5,6 +5,7 @@ RG-LRU blocks (recurrentgemma), SSD blocks (mamba2) and the VLM prefix
 (internvl2); port of the serving entry points of the reference's
 `repro/models/transformer.py`:
 
+    loss(params, batch)                        — training loss (+ MoE aux)
     prefill(params, batch, cache_len)          — prompt forward + dense cache
     init_cache(cfg, batch, cache_len)          — dense decode cache
     decode_step(params, cache, tokens)         — one token, dense cache
@@ -60,18 +61,20 @@ from repro_torch.kernels.quant import (FP8_STORAGE_DTYPE,
                                        dequantize_page_rows, from_fp8,
                                        kv_dtype_spec, quantize_page_rows,
                                        to_fp8_codes)
-from repro_torch.models.attention import (cache_write, chunked_attention,
+from repro_torch.models.attention import (blocked_attention, cache_write,
+                                          chunked_attention,
                                           decode_attention,
                                           decode_valid_mask,
                                           local_attention, project_qkv)
-from repro_torch.models.common import (apply_norm, apply_rope, embed_tokens,
-                                       lm_logits)
+from repro_torch.models.common import (apply_norm, apply_rope,
+                                       checkpointed, cross_entropy,
+                                       embed_tokens, lm_logits)
 from repro_torch.models.ffn import apply_ffn
 from repro_torch.models.moe import apply_moe
-from repro_torch.models.rglru import (apply_rglru_decode, init_rglru_cache,
-                                      rglru_prefill)
-from repro_torch.models.ssm import apply_ssm_decode, init_ssm_cache, \
-    ssm_prefill
+from repro_torch.models.rglru import (apply_rglru, apply_rglru_decode,
+                                      init_rglru_cache, rglru_prefill)
+from repro_torch.models.ssm import (apply_ssm, apply_ssm_decode,
+                                    init_ssm_cache, ssm_prefill)
 from repro_torch.params import require_decoder
 
 # Page 0 is the null page: retired/inactive slots point their whole table at
@@ -127,11 +130,12 @@ def _ffn_residual(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     return x + apply_ffn(cfg, p["ffn"], y)
 
 
-def _block_prefill(cfg, kind: str, p: dict, x: torch.Tensor,
-                   positions: torch.Tensor):
-    """One attention block over the whole prompt; returns (x_out, (k, v))
-    with k, v (B, S, K, h) post-RoPE. Full attention runs the prefill
-    kernel; local and chunked attention the plain versions."""
+def _attend(cfg, kind: str, p: dict, x: torch.Tensor,
+            positions: torch.Tensor, full_attention=flash_attention):
+    """x + attention(norm1(x)) over the whole sequence; returns (x, (k, v))
+    with k, v (B, S, K, h) post-RoPE. Full attention runs `full_attention`
+    (the prefill kernel when serving, `blocked_attention` in the loss);
+    local and chunked attention the plain versions."""
     B, S, _ = x.shape
     y = apply_norm(cfg, p["norm1"], x)
     q, k, v = project_qkv(cfg, p["attn"], y, y)
@@ -139,13 +143,43 @@ def _block_prefill(cfg, kind: str, p: dict, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if kind == "full":
-        o = flash_attention(q, k, v)
+        o = full_attention(q, k, v)
     elif kind == "local":
         o = local_attention(q, k, v, cfg.local_window)
     else:
         o = chunked_attention(q, k, v, cfg.local_window)
     x = x + o.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
-    return _ffn_residual(cfg, p, x), (k, v)
+    return x, (k, v)
+
+
+def _block_prefill(cfg, kind: str, p: dict, x: torch.Tensor,
+                   positions: torch.Tensor):
+    """One attention block over the whole prompt; returns (x_out, (k, v))
+    with k, v (B, S, K, h) post-RoPE."""
+    x, kv = _attend(cfg, kind, p, x, positions)
+    return _ffn_residual(cfg, p, x), kv
+
+
+def _block_train(cfg, kind: str, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """One block of the training forward (the reference's `apply_block`):
+    returns (x_out, the MoE aux loss, 0.0 for every other block). Full
+    attention runs `blocked_attention`, the plain differentiable version
+    of kernel 2, chosen here by name: the reference's loss runs jnp
+    attention, and the port has no backward kernel for kernel 2 yet."""
+    if kind in ATTENTION_KINDS:
+        x, _ = _attend(cfg, kind, p, x, positions, blocked_attention)
+        y = apply_norm(cfg, p["norm2"], x)
+        if cfg.moe is not None:
+            f, aux = apply_moe(cfg, p["ffn"], y)
+            return x + f, aux
+        return x + apply_ffn(cfg, p["ffn"], y), 0.0
+    y = apply_norm(cfg, p["norm1"], x)
+    if kind == "rglru":
+        x = x + apply_rglru(cfg, p["rec"], y)
+        return x + apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["norm2"],
+                                                       x)), 0.0
+    return x + apply_ssm(cfg, p["ssm"], y), 0.0
 
 
 def _recurrent_prefill(cfg, kind: str, p: dict, x: torch.Tensor):
@@ -294,7 +328,6 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
     cache length (a ring of min(local_window, cache_len) rows for local
     and chunked layers); RG-LRU and SSD layers their recurrent state and
     conv buffers."""
-    require_decoder(cfg)
     dev = require_device(device)
     pat = cfg.block_pattern
     n_rep = cfg.num_layers // len(pat)
@@ -570,10 +603,13 @@ def _block_shared_prefill(cfg, p: dict, x: torch.Tensor,
 class DecoderLM:
     """Decoder of any decoder-only config, computing in `compute_dtype` on
     `device` (the card unless the caller asks for the CPU). Encoder-decoder
-    configs raise `NotImplementedError`."""
+    configs raise `NotImplementedError`. `remat` ("none", "full", "dots")
+    is the loss's activation checkpointing (`models.common.checkpointed`);
+    serving ignores it."""
     cfg: Any
     compute_dtype: torch.dtype = torch.bfloat16
     device: Any = "cuda"
+    remat: str = "full"
 
     def __post_init__(self):
         require_decoder(self.cfg)
@@ -608,6 +644,45 @@ class DecoderLM:
                 + params["projector"]["b"].to(dt)
             x = torch.cat([pr, x], dim=1)
         return x, positions
+
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Training loss (the reference's `DecoderLM.loss`): mean next-token
+        cross entropy over batch["tokens"] (B, S) (labels default to the
+        tokens; prefix rows are not scored) plus the MoE aux loss summed
+        over the layers. Every block runs over the whole sequence, full
+        attention through `blocked_attention` (see `_block_train`). Each
+        repetition of the block pattern runs under `remat`, as the
+        reference's scanned group does; the tail blocks run without."""
+        cfg = self.cfg
+        x, positions = self._embed_inputs(params, batch)
+        layers = [(kind, p) for kind, p, _ in stack_layers(cfg, params)]
+        width = len(cfg.block_pattern)
+        n_grouped = cfg.num_layers // width * width
+
+        def group(x, blocks):
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
+            for kind, p in blocks:
+                x, a = _block_train(cfg, kind, p, x, positions)
+                aux = aux + a
+            return x, aux
+
+        run = checkpointed(self.remat, group)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for r in range(0, n_grouped, width):
+            x, a = run(x, layers[r:r + width])
+            aux = aux + a
+        for kind, p in layers[n_grouped:]:
+            x, a = _block_train(cfg, kind, p, x, positions)
+            aux = aux + a
+        x = apply_norm(cfg, params["final_norm"], x)
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        n_pfx = x.shape[1] - tokens.shape[1]
+        if n_pfx:
+            x = x[:, n_pfx:, :]
+        logits = lm_logits(cfg, params["embed"], x[:, :-1, :])
+        labels = torch.as_tensor(batch.get("labels", batch["tokens"]),
+                                 device=self.device).long()[:, 1:]
+        return cross_entropy(logits, labels) + aux
 
     def prefill(self, params: dict, batch: dict, cache_len: int):
         """batch["tokens"]: (B, S) [+ "prefix_embeds" (B, n_pfx, D) for a

@@ -1,11 +1,16 @@
-"""Parameters of the port's decoder: the reference's tree, as tensors.
+"""Parameters of the port's models: the reference's trees, as tensors.
 
 The tree has the reference's keys and shapes (`repro/models/transformer.py`
 `lm_template`): {"embed": {"tok", ["pos"], ["head"]}, "blocks": [one
 stacked block dict per pattern slot, with a leading repetition axis],
 "tail": [unstacked blocks past the last whole repetition], "final_norm":
 {...}, ["projector": {"w", "b"}]}, for every decoder family (attention
-with a dense or MoE FFN, RG-LRU and SSD blocks, the VLM projector).
+with a dense or MoE FFN, RG-LRU and SSD blocks, the VLM projector). An
+encoder-decoder config (seamless-m4t) has the reference's `encdec_template`
+tree instead (`repro/models/encdec.py`): {"embed", "enc_pos", "encoder": a
+stacked block dict over the encoder layers, "enc_norm", "decoder": a
+stacked dict over the decoder layers with "self_attn" and "cross_attn",
+"final_norm"}.
 
   * `from_jax_params` carries weights across from the reference: its
     `DecoderLM.init` params, brought to numpy (`jax.device_get`), become
@@ -38,11 +43,11 @@ def _norm(cfg) -> Dict[str, Spec]:
     return {"scale": ((d,), "zeros")}       # rmsnorm stores (gain - 1)
 
 
-def _attn(cfg) -> Dict[str, Spec]:
+def _attn(cfg, cross: bool = False) -> Dict[str, Spec]:
     D, Q, KV = cfg.d_model, cfg.q_dim, cfg.kv_dim
     t = {"wq": ((D, Q), "normal"), "wk": ((D, KV), "normal"),
          "wv": ((D, KV), "normal"), "wo": ((Q, D), "normal")}
-    if cfg.attn_bias:
+    if cfg.attn_bias and not cross:
         t.update(bq=((Q,), "zeros"), bk=((KV,), "zeros"),
                  bv=((KV,), "zeros"))
     return t
@@ -114,29 +119,63 @@ def _stacked(tree, n: int):
 
 
 def require_decoder(cfg) -> None:
-    """The port runs decoder-only configs; encoder-decoder ones
-    (seamless-m4t) wait for the next slice."""
+    """Refuse an encoder-decoder config where the reference has no
+    encoder-decoder path: `DecoderLM` and the paged cache (seamless-m4t
+    runs as `EncDecModel`, served by `BatchedServer`)."""
     if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name} is an encoder-decoder; the port's next slice "
-            "brings enc-dec (models/encdec.py, cross attention and a "
-            "non-causal prefill kernel)")
+            f"{cfg.name} is an encoder-decoder: it runs as EncDecModel "
+            "(models/encdec.py, served by BatchedServer); the decoder-only "
+            "model and the paged cache have no encoder-decoder path, as "
+            "in the reference")
 
 
-def param_specs(cfg) -> Dict[str, Any]:
-    """The tree of (shape, init) leaves the reference's `lm_template`
-    describes: one stacked dict per pattern slot (leading axis n_rep =
-    num_layers // len(pattern)), the unstacked tail blocks, and the
-    projector of configs with a frontend."""
-    require_decoder(cfg)
+def _embed(cfg) -> Dict[str, Spec]:
     embed = {"tok": ((cfg.padded_vocab, cfg.d_model), "embed")}
     if cfg.pos_emb == "learned":
         embed["pos"] = ((min(cfg.max_seq_len, 32768), cfg.d_model), "embed")
     if not cfg.tie_embeddings:
         embed["head"] = ((cfg.d_model, cfg.padded_vocab), "normal")
+    return embed
+
+
+def enc_block_template(cfg) -> Dict[str, Any]:
+    """One encoder block (the reference's `enc_block_template`)."""
+    return {"norm1": _norm(cfg), "attn": _attn(cfg), "norm2": _norm(cfg),
+            "ffn": _ffn(cfg)}
+
+
+def dec_block_template(cfg) -> Dict[str, Any]:
+    """One decoder block (the reference's `dec_block_template`): self
+    attention, cross attention without bias, FFN."""
+    return {"norm1": _norm(cfg), "self_attn": _attn(cfg),
+            "norm_c": _norm(cfg), "cross_attn": _attn(cfg, cross=True),
+            "norm2": _norm(cfg), "ffn": _ffn(cfg)}
+
+
+def encdec_template(cfg) -> Dict[str, Any]:
+    """The reference's `encdec_template`: the learned encoder positions, the
+    encoder blocks stacked over `encoder_layers`, the decoder blocks
+    stacked over `num_layers`."""
+    return {"embed": _embed(cfg),
+            "enc_pos": ((min(cfg.max_seq_len, 32768), cfg.d_model), "embed"),
+            "encoder": _stacked(enc_block_template(cfg), cfg.encoder_layers),
+            "enc_norm": _norm(cfg),
+            "decoder": _stacked(dec_block_template(cfg), cfg.num_layers),
+            "final_norm": _norm(cfg)}
+
+
+def param_specs(cfg) -> Dict[str, Any]:
+    """The tree of (shape, init) leaves the reference's template describes.
+    Decoder-only configs (`lm_template`): one stacked dict per pattern slot
+    (leading axis n_rep = num_layers // len(pattern)), the unstacked tail
+    blocks, and the projector of configs with a frontend. Encoder-decoder
+    configs: `encdec_template`."""
+    if cfg.is_encdec:
+        return encdec_template(cfg)
     pat = cfg.block_pattern
     n_rep = cfg.num_layers // len(pat)
-    t = {"embed": embed,
+    t = {"embed": _embed(cfg),
          "blocks": [_stacked(_block(cfg, k), n_rep) for k in pat],
          "tail": [_block(cfg, k)
                   for k in cfg.layer_kinds()[n_rep * len(pat):]],

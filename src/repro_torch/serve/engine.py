@@ -3,14 +3,15 @@ decode with a static dense KV cache (port of the reference's
 `repro/serve/engine.py`).
 
 The cache is preallocated to `max_len`. Decoding is a Python loop of device
-steps (`DecoderLM.decode_step`, attending through `kernels.gqa_decode`)
-with no host sync inside it: the emitted tokens stay on the device until
-the loop ends. Sampling at temperature > 0 draws from a `torch.Generator`
-seeded from `ServeConfig.seed`; it does not give JAX's draws, so the port
-matches the reference's tokens at temperature 0 only. With a `telemetry`
-registry each call records wall-clock "prefill" and "decode" spans and the
-`serve.engine.*` counters; with a `meter` it meters the batch's dense KV
-footprint as a wall-clock square wave, as the reference does.
+steps (`DecoderLM.decode_step` or `EncDecModel.decode_step`, attending
+through `kernels.gqa_decode`) with no host sync inside it: the emitted
+tokens stay on the device until the loop ends. Sampling at temperature > 0
+draws from a `torch.Generator` seeded from `ServeConfig.seed`; it does not
+give JAX's draws, so the port matches the reference's tokens at temperature
+0 only. With a `telemetry` registry each call records wall-clock "prefill"
+and "decode" spans and the `serve.engine.*` counters; with a `meter` it
+meters the batch's dense KV footprint as a wall-clock square wave, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -99,8 +100,9 @@ class BatchedServer:
     def generate(self, batch: Dict[str, Any],
                  max_new_tokens: Optional[int] = None) -> Dict[str, Any]:
         """batch: {"tokens": (B, S_prompt)} [+ "prefix_embeds" (B, n_pfx, D)
-        for a config with a frontend], passed whole to the prefill as the
-        reference passes it. Returns {"tokens": (B, S_new)
+        for a config with a frontend, or "frames" (B, S_enc, D) for an
+        encoder-decoder], passed whole to the prefill as the reference
+        passes it. Returns {"tokens": (B, S_new)
         int64 numpy, "stats": ServeStats}; with `collect_logits` also
         "logits" (B, S_new, V) float32, the last-position logits that
         produced each emitted token (prefill step included)."""

@@ -337,6 +337,8 @@ class PagedContinuousBatcher:
                  on_long_prompt: str = "reject",
                  speculate_k: Optional[int] = None, draft_model=None,
                  draft_params=None, telemetry=None, meter=None):
+        if not hasattr(model, "decode_step_paged"):
+            raise TypeError("model lacks a paged decode path")
         if on_long_prompt not in ("reject", "truncate"):
             raise ValueError("on_long_prompt must be 'reject' or 'truncate'")
         if prefill_chunk_tokens is not None:

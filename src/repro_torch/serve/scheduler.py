@@ -190,6 +190,11 @@ class ContinuousBatcher:
                  step_time_s: float = 1e-3, prefill_tok_s: float = 5e-5,
                  on_long_prompt: str = "reject", telemetry=None,
                  meter=None):
+        if getattr(getattr(model, "cfg", None), "is_encdec", False):
+            raise TypeError(
+                f"{model.cfg.name} is an encoder-decoder: ContinuousBatcher "
+                "has no encoder-decoder path (its requests carry no "
+                "frames), as in the reference; serve it with BatchedServer")
         if on_long_prompt not in ("reject", "truncate"):
             raise ValueError("on_long_prompt must be 'reject' or 'truncate'")
         self.model = model

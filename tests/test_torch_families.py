@@ -9,8 +9,8 @@
   `decode_step`s for olmoe, llama4-scout, mamba2, recurrentgemma and
   internvl2 (with prefix embeddings): logits within 1e-4, the caches
   within 1e-5 (scan states 1e-5 relative), greedy tokens equal;
-* `build_model` and `concrete_batch`, and enc-dec refused naming the next
-  slice.
+* `build_model` and `concrete_batch`: seamless builds an `EncDecModel`
+  with a frames batch, and `DecoderLM` refuses it.
 
 The reference's weights cross through `from_jax_params`; inputs come from
 `np.random.default_rng`.
@@ -27,7 +27,8 @@ from repro.models import build_model as jax_build_model
 from repro.models.common import PTpl
 from repro.models.transformer import lm_template
 import repro_torch.configs as tconfigs
-from repro_torch.models import DecoderLM, build_model, concrete_batch
+from repro_torch.models import (DecoderLM, EncDecModel, build_model,
+                                concrete_batch)
 from repro_torch.models.attention import chunked_attention, local_attention
 from repro_torch.params import from_jax_params, init_params, param_specs
 
@@ -175,10 +176,14 @@ def test_build_model_and_concrete_batch():
             assert b["prefix_embeds"].dtype == torch.bfloat16
         else:
             assert "prefix_embeds" not in b
-    seamless = tconfigs.get_arch("seamless-m4t-large-v2")
-    for fn in (lambda: build_model(seamless, device="cpu"),
-               lambda: DecoderLM(seamless, device="cpu"),
-               lambda: param_specs(seamless),
-               lambda: concrete_batch(seamless, "prefill", 1, 8)):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            fn()
+    # seamless builds its encoder-decoder with a frames batch; the
+    # decoder-only model still refuses it
+    seamless = tconfigs.reduced(tconfigs.get_arch("seamless-m4t-large-v2"))
+    m = build_model(seamless, compute_dtype=torch.float32, device="cpu")
+    assert isinstance(m, EncDecModel) and m.cfg is seamless
+    b = concrete_batch(seamless, "prefill", 1, 8)
+    assert b["frames"].shape == (1, 8, seamless.d_model)
+    assert b["tokens"].shape == (1, 8) and "labels" not in b
+    assert "decoder" in param_specs(seamless)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        DecoderLM(seamless, device="cpu")

@@ -2,8 +2,9 @@
 `chip_smoke.py`, imports JAX or the JAX package `repro`, and the package
 imports and runs a CPU prefill + paged decode step, a Stage-I decode
 horizon swept in Stage II, a prefix-cached, chunked serve of shared-prefix
-traffic with telemetry and an energy meter, and a pruned, metered traffic
-campaign, with JAX made unimportable."""
+traffic with telemetry and an energy meter, a pruned, metered traffic
+campaign, one reduced train step and an encoder-decoder served by
+`BatchedServer` with its trace swept, with JAX made unimportable."""
 import ast
 import os
 import subprocess
@@ -92,6 +93,25 @@ rep = run_campaign(["dsr1d-qwen-1.5b"], horizon_s=2.0, num_slots=2,
                    max_len=256, banks=(1, 4), device="cpu", prune=True,
                    meter_spec="4,4")
 assert rep.rows and rep.rows[0].energy is not None
+import repro_torch.launch.train, repro_torch.examples.train_lm
+from repro_torch.data import DataConfig, SyntheticTokens
+from repro_torch.models import EncDecModel
+from repro_torch.optim import AdamW, constant
+from repro_torch.train import make_train_step
+from repro_torch.train import checkpoint
+opt = AdamW(lr=constant(1e-3))
+batch = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                   global_batch=2)).batch_at(0)
+p2, st, met = make_train_step(m, opt)(p, opt.init(p), batch)
+assert int(st.step) == 1 and bool(torch.isfinite(met["loss"]))
+from repro_torch.examples.encdec_serving import (config, inputs, serve,
+                                                 sweep_log)
+ecfg = config(False)
+em = EncDecModel(ecfg, compute_dtype=torch.float32, device="cpu")
+ep = init_params(ecfg, torch.Generator().manual_seed(0), device="cpu")
+fr, tk = inputs(ecfg, dict(batch=1, frames=6, prompt=5), 0)
+res = serve(em, ep, fr, tk, 3)
+assert res["tokens"].shape == (1, 3) and sweep_log(res["log"], "cpu").rows
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print("ok")
