@@ -51,7 +51,21 @@ its checkpoint against the uninterrupted run (bit for bit), then
 full-width tinyllama-1.1b through `launch/train.py`'s entry point (B8 x
 S64, float32, four steps writing one checkpoint, then one more step
 restored from it; checkpoints in temporary directories the phase
-deletes), with the step time and peak memory. It builds the
+deletes), with the step time and peak memory; and the four dense
+assigned configs (`dense_archs`, run right after the kernels phase while
+nothing else holds device memory): kernels 1 (bf16 and fp8 pools), 5, 6
+(V 4, 192 query rows a KV head) and 7 at granite-34b's MQA group of 48
+(H48 K1 d128, run in row chunks), kernel 1 at qwen2-7b's,
+deepseek-coder-33b's and tinyllama-1.1b's groups and kernel 2 at granite's
+and tinyllama's prefill, each held to its plain version, split mirror,
+batch-1 rows and a second call; each config reduced to 2 layers (granite
+also at H48 K1 d128) on the card against the CPU through the paged,
+speculative, batched and dense batchers; then each at full width with
+random bf16 weights (tinyllama-1.1b, qwen2-7b, deepseek-coder-33b,
+granite-34b, freed one by one) serving the serve phase's first 8 requests
+x 32 new tokens on bf16 pages, granite also on fp8 and int8 pages,
+speculatively and densely, launches counted against layers x calls and
+every trace swept on the card against the CPU. It builds the
 CUDA kernels from `src/repro_torch/csrc/` first, holds every kernel against
 its plain PyTorch version at its path's shapes, and checks that each path
 launched its kernels (launch counts are set to 0 just before a path and
@@ -75,7 +89,8 @@ walk are timed apart beside the serial floor (a small kernel adding the
 trace's length of f64 numbers in one thread) and its running time is held
 to np.cumsum bit for bit; both bank kernels give the same bits twice.
 The bank kernels are also timed at each decode horizon's own shape.
-Each phase prints one JSON line (device, kernels, reference,
+Each phase prints one JSON line (device, kernels, dense_archs_init and
+dense_archs_full for each dense config, dense_archs, reference,
 reference_prefix, serve, stage2, bank_kernels, serve_quant, stage2_quant,
 int8_ffn, serve_spec, serve_dense, serve_prefix, traffic, serve_obs,
 stage1, families_full for each family, families, encdec, train); the
@@ -89,8 +104,8 @@ Any failed phase raises: the script exits nonzero without that line, as it
 does when no CUDA device is present.
 
 Run from the root of the repository:  python3 chip_smoke.py
-(`--only families`, `--only encdec` or `--only train` builds the kernels
-and runs that phase alone.)
+(`--only dense_archs`, `--only families`, `--only encdec` or `--only
+train` builds the kernels and runs that phase alone.)
 """
 from __future__ import annotations
 
@@ -203,6 +218,17 @@ FAMILY_BATCHERS = ("paged", "dense", "batched")
 TRAIN_REDUCED = (ARCH, "olmoe-1b-7b")
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 4
+# the four dense assigned configs (`dense_archs`), in order of size: each
+# reduced to 2 layers for the card-vs-CPU check (granite also at its real
+# attention shape, MQA with a group of 48), then at full width with random
+# bf16 weights, serving the serve phase's first 8 requests x 32 new tokens.
+# A config is cut in depth only if its weights and the reserve (pools,
+# activations, the prefill's logits) exceed the free device memory
+DENSE_ARCHS = ("tinyllama-1.1b", "qwen2-7b", "deepseek-coder-33b",
+               "granite-34b")
+GROUP48 = dict(num_heads=48, num_kv_heads=1, head_dim=128)
+DENSE_ARCH_REQUESTS, DENSE_ARCH_NEW = 8, 32
+DENSE_ARCH_RESERVE = 6 << 30
 
 
 def emit(phase: str, **fields) -> None:
@@ -2372,10 +2398,399 @@ def train_phase() -> dict:
     return fields
 
 
+# ------------------------------------------------ the four dense configs
+def dense_arch_config(name: str, group48: bool = False):
+    """A dense config reduced to 2 layers (float32 card-vs-CPU runs); with
+    `group48` granite at its real attention shape (H48 K1 d128), which the
+    decode kernels run in row chunks."""
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    cfg = reduced(get_arch(name), layers=2)
+    return dataclasses.replace(cfg, **GROUP48) if group48 else cfg
+
+
+def repeat_equal(tag, fn, args) -> None:
+    """Two calls of a kernel on the same inputs give the same bits."""
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(a, b)), f"{tag}: two calls give the same bits")
+
+
+def dense_arch_kernel_rows(gen) -> dict:
+    """Kernels 1, 5, 6, 7 and 2 at the dense configs' shapes, each against
+    its plain version (and the decode kernels against their split mirrors,
+    batch-1 rows against the batch's at 0.0, verify rows against decode
+    rows at 0.0): paged decode at granite's H48 K1 d128 (bf16 and fp8
+    pools), at qwen2-7b's H28 K4, deepseek-coder-33b's H56 K8 (d128) and
+    tinyllama's H32 K4 d64 (bf16); int8 paged decode and verify (V 4: 192
+    rows a KV head) at granite's; dense decode at granite's B8 T640 beside
+    SDPA with the lengths mask; prefill at granite's S499 H48 K1 and
+    tinyllama's, beside SDPA. At granite's shape two calls must give the
+    same bits."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.paged_gqa_decode import (
+        paged_gqa_decode, paged_gqa_decode_quant,
+        paged_gqa_decode_quant_mirror_ref, paged_gqa_decode_quant_ref,
+        paged_gqa_decode_quant_split_ref, paged_gqa_decode_ref,
+        paged_gqa_decode_split_ref)
+    from repro_torch.kernels.paged_gqa_verify import paged_gqa_verify
+    from repro_torch.kernels.quant import quantize_page_rows, to_fp8_codes
+    cfgs = {n: get_arch(n) for n in DENSE_ARCHS}
+    gr = cfgs["granite-34b"]
+    lengths = prompt_lengths()
+    dec_lens = np.r_[1, lengths[1:SLOTS] + NEW_TOKENS // 2]
+    per_slot = -(-(PROMPT_MAX + NEW_TOKENS) // PAGE_SIZE)
+    num_pages = SLOTS * per_slot + 1
+    rows = {k: [] for k in ("paged_gqa_decode", "paged_gqa_decode_quant",
+                            "paged_gqa_verify", "gqa_decode",
+                            "flash_attention")}
+    for name, pools in (("granite-34b", "bfloat16"), ("granite-34b", "fp8"),
+                        ("qwen2-7b", "bfloat16"),
+                        ("deepseek-coder-33b", "bfloat16"),
+                        ("tinyllama-1.1b", "bfloat16")):
+        c = cfgs[name]
+        q, kp, vp, table, lens = decode_case(
+            gen, SLOTS, c.num_heads, c.num_kv_heads, c.head_dim, dec_lens,
+            torch.float32, num_pages)
+        q = q.to(torch.bfloat16)
+        kp, vp = ((to_fp8_codes(kp), to_fp8_codes(vp)) if pools == "fp8"
+                  else (kp.to(torch.bfloat16), vp.to(torch.bfloat16)))
+        args = (q, kp, vp, table, lens)
+        rows["paged_gqa_decode"].append(dict(decode_row(
+            f"{name} pools {pools}", c, paged_gqa_decode,
+            paged_gqa_decode_ref, args, lens, kp.element_size(),
+            paged_gqa_decode_split_ref), pools=pools))
+        if c is gr:
+            repeat_equal(f"paged decode {name} {pools}", paged_gqa_decode,
+                         args)
+
+    q, kf, vf, table, lens = decode_case(
+        gen, SLOTS, gr.num_heads, gr.num_kv_heads, gr.head_dim, dec_lens,
+        torch.float32, num_pages)
+    (kp, ks), (vp, vs) = quantize_page_rows(kf), quantize_page_rows(vf)
+    args = (q.to(torch.bfloat16), kp, vp, ks, vs, table, lens)
+    row = decode_row("granite-34b int8", gr, paged_gqa_decode_quant,
+                     paged_gqa_decode_quant_ref, args, lens, 1,
+                     paged_gqa_decode_quant_split_ref, scale_bytes=4)
+    row["max_abs_err_mirror"] = max_err(paged_gqa_decode_quant(*args),
+                                        paged_gqa_decode_quant_mirror_ref(
+                                            *args))
+    check(row["max_abs_err_mirror"] <= TOL[torch.bfloat16],
+          f"int8 decode granite vs mirror: {row['max_abs_err_mirror']}")
+    repeat_equal("int8 decode granite-34b", paged_gqa_decode_quant, args)
+    rows["paged_gqa_decode_quant"].append(row)
+
+    V = SPEC_K + 1
+    for pools in ("bfloat16", "fp8"):
+        q, kp, vp, table, lens = decode_case(
+            gen, SLOTS, gr.num_heads, gr.num_kv_heads, gr.head_dim,
+            dec_lens + V, torch.float32, num_pages)
+        q = torch.randn((SLOTS, V, gr.num_heads, gr.head_dim), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        kp, vp = ((to_fp8_codes(kp), to_fp8_codes(vp)) if pools == "fp8"
+                  else (kp.to(torch.bfloat16), vp.to(torch.bfloat16)))
+        args = (q, kp, vp, table, (lens - V).clamp(min=0))
+        rows["paged_gqa_verify"].append(dict(verify_row(
+            f"granite-34b pools {pools}", gr, args), pools=pools))
+        repeat_equal(f"verify granite-34b {pools}", paged_gqa_verify, args)
+
+    dense_lens = np.r_[lengths[:SLOTS - 1] + NEW_TOKENS // 2, DENSE_MAX_LEN]
+    rows["gqa_decode"].append(dense_row(gen, "granite-34b", gr, dense_lens,
+                                        torch.bfloat16))
+    S_max, S_min = int(lengths.max()), int(lengths.min())
+    for name in ("granite-34b", "tinyllama-1.1b"):
+        rows["flash_attention"].append(flash_row(
+            gen, name, cfgs[name], S_max, S_min, torch.bfloat16))
+    return rows
+
+
+def _reduced_serve(model, params, prompts, batcher, **kw) -> dict:
+    """One reduced-model run (greedy, 10 new tokens) through `batcher`:
+    "paged" (3 slots, page 8, chunks of 6; logits collected unless
+    speculating), "batched" (the prompts' first 5 tokens, 8 new) or
+    "dense" (2 slots, max_len 64). Returns {"outputs", "logits",
+    "engine"}."""
+    from repro_torch.serve import (BatchedServer, ContinuousBatcher,
+                                   PagedContinuousBatcher, Request,
+                                   ServeConfig)
+    if batcher == "batched":
+        eng = BatchedServer(model, params, ServeConfig(
+            max_len=24, max_new_tokens=8), collect_logits=True)
+        res = eng.generate({"tokens": np.stack([p[:5] for p in prompts])})
+        return dict(outputs=[list(map(int, r)) for r in res["tokens"]],
+                    logits=list(res["logits"]), engine=eng)
+    if batcher == "paged":
+        logits = "speculate_k" not in kw
+        eng = PagedContinuousBatcher(
+            model, params, num_slots=3, page_size=8, num_pages=64,
+            max_pages_per_slot=8, chunk_steps=6, collect_logits=logits, **kw)
+    else:
+        eng = ContinuousBatcher(model, params, num_slots=2, max_len=64)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, tokens=p, max_new_tokens=10))
+    done = sorted(eng.run(), key=lambda r: r.rid)
+    return dict(outputs=[r.output for r in done], engine=eng,
+                logits=[np.stack(r.logits) for r in done]
+                if batcher == "paged" and "speculate_k" not in kw else None)
+
+
+def dense_arch_parity(name: str, group48: bool = False) -> dict:
+    """A dense config reduced to 2 layers (float32; `group48`: granite at
+    H48 K1 d128) on the card against its plain path on the CPU, with the
+    same weights (drawn on the CPU), through the paged batcher, the
+    speculative paged batcher (k 3, skip-2 draft), `BatchedServer` and
+    `ContinuousBatcher`: greedy tokens and trace events equal, `PagedStats`
+    equal on the speculative run, logits within TOL of their magnitude,
+    and the paged trace's card sweep equal to the CPU sweep."""
+    import dataclasses
+    from repro_torch.examples.families_serving import sweep_trace
+    from repro_torch.models import DecoderLM
+    from repro_torch.params import init_params
+    cfg = dense_arch_config(name, group48)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    runs = {"cuda": (DecoderLM(cfg, torch.float32, "cuda"),
+                     _to(cpu_params, "cuda")),
+            "cpu": (DecoderLM(cfg, torch.float32, "cpu"), cpu_params)}
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n))
+               for n in rng.integers(5, 40, 5)]
+    tol = TOL[torch.float32]
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               heads=f"H{cfg.num_heads} K{cfg.num_kv_heads} d{cfg.head_dim}")
+    for batcher, kw in (("paged", {}), ("spec", dict(speculate_k=SPEC_K)),
+                        ("batched", {}), ("dense", {})):
+        res = {dev: _reduced_serve(m, p, prompts,
+                                   "paged" if batcher == "spec" else batcher,
+                                   **kw)
+               for dev, (m, p) in runs.items()}
+        a, b = res["cuda"], res["cpu"]
+        tag = f"{cfg.name} {out['heads']} {batcher}"
+        check(a["outputs"] == b["outputs"],
+              f"{tag}: greedy tokens on the card == CPU")
+        row = dict(requests=len(a["outputs"]),
+                   tokens=sum(len(o) for o in a["outputs"]),
+                   tokens_equal=True)
+        if a["logits"] is not None:
+            row["logits_err"] = _logits_err(a["logits"], b["logits"])
+            check(row["logits_err"] <= tol,
+                  f"{tag}: logits {row['logits_err']}")
+        ev = _trace_events(a["engine"])
+        if ev is not None:
+            check(ev == _trace_events(b["engine"]),
+                  f"{tag}: trace events on the card == CPU")
+            row["trace_events"] = len(ev[0])
+        if batcher == "spec":
+            sa, sb = (dataclasses.asdict(r["engine"].stats) for r in (a, b))
+            check(sa == sb, f"{tag}: PagedStats on the card == CPU")
+            check(sa["spec_rounds"] > 0, f"{tag}: speculation ran")
+            row.update(spec_rounds=sa["spec_rounds"],
+                       accepted_tokens=sa["accepted_tokens"])
+        if batcher == "paged":
+            check(dataclasses.asdict(a["engine"].stats)
+                  == dataclasses.asdict(b["engine"].stats),
+                  f"{tag}: PagedStats on the card == CPU")
+            row["sweep"] = _sweep_equal(tag, sweep_trace(a["engine"], "cuda"),
+                                        sweep_trace(b["engine"], "cpu"))
+        out[batcher] = row
+    return out
+
+
+def dense_arch_full(name: str) -> tuple:
+    """One dense config at full width with seeded random bf16 weights (cut
+    in depth only if weights and DENSE_ARCH_RESERVE do not fit the free
+    device memory, and then printed with why), served the serve phase's
+    stream cut to DENSE_ARCH_REQUESTS requests x DENSE_ARCH_NEW tokens on
+    native bf16 pages; granite-34b also on fp8 and int8 pages,
+    speculatively (k 3, skip-2 draft) and densely (`BatchedServer`,
+    `ContinuousBatcher`). Launch counts are set to 0 just before each path
+    and read just after: each kernel's launches must equal layers x calls,
+    every request gets its new tokens in the vocabulary, and each paged
+    trace's card sweep equals the CPU sweep. Returns (fields, summed
+    launches of the paths)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.examples.families_serving import sweep_trace
+    from repro_torch.kernels import build
+    from repro_torch.models import DecoderLM
+    from repro_torch.params import init_params
+    cfg = published = get_arch(name)
+    free, total = torch.cuda.mem_get_info()
+    emit("dense_archs_init", arch=name, mem_free_bytes=free,
+         mem_total_bytes=total, weight_bytes=2 * cfg.param_count(),
+         reserve_bytes=DENSE_ARCH_RESERVE)
+    cut = None
+    if 2 * cfg.param_count() + DENSE_ARCH_RESERVE > free:
+        one = 2 * dataclasses.replace(cfg, num_layers=1).param_count()
+        per_layer = 2 * dataclasses.replace(
+            cfg, num_layers=2).param_count() - one
+        layers = int((free - DENSE_ARCH_RESERVE - (one - per_layer))
+                     // per_layer)
+        check(layers >= 1, f"{name}: not one layer fits {free} bytes free")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        cut = (f"{layers} of {published.num_layers} layers: "
+               f"{2 * published.param_count()} bytes of bf16 weights and a "
+               f"{DENSE_ARCH_RESERVE}-byte reserve exceed the {free} bytes "
+               "free")
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, compute_dtype=torch.bfloat16, device="cuda")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    out = dict(arch=name, layers=L, published_layers=published.num_layers,
+               cut=cut, d_model=cfg.d_model,
+               heads=f"H{cfg.num_heads} K{cfg.num_kv_heads} d{cfg.head_dim}",
+               vocab=cfg.vocab_size, dtype="bfloat16",
+               param_bytes=sum(t.numel() * t.element_size()
+                               for t in _leaves(params)),
+               mem_free_bytes_before_init=free,
+               init_s=time.perf_counter() - t0)
+    prng = np.random.default_rng(SEED + 1)
+    prompts = [prng.integers(0, cfg.vocab_size, int(n))
+               for n in prompt_lengths()[:DENSE_ARCH_REQUESTS]]
+    totals = {}
+
+    def count(tag, counts, want):
+        """Checks each kernel of `want` launched its layers x calls, adds
+        the path's launches to `totals`; returns those of `want`."""
+        for k, n in want.items():
+            check(counts[k] == n, f"{name} {tag}: {k} launches {counts[k]} "
+                  f"== layers x calls {n}")
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+        return {k: counts[k] for k in want}
+
+    def swept(tag, cb) -> dict:
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        table = sweep_trace(cb, "cuda")
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t
+        bank = build.launch_counts()
+        check(bank["exact_bank_stats"] > 0,
+              f"{name} {tag}: the sweep launched exact_bank_stats")
+        for k in ("exact_bank_stats", "bank_energy"):
+            totals[k] = totals.get(k, 0) + bank[k]
+        return dict(_sweep_equal(f"{name} {tag}", table,
+                                 sweep_trace(cb, "cpu")),
+                    sweep_s=sweep_s,
+                    launches={k: bank[k] for k in ("exact_bank_stats",
+                                                   "bank_energy")})
+
+    kv_kernel = {"native": "paged_gqa_decode", "fp8": "paged_gqa_decode",
+                 "int8": "paged_gqa_decode_quant"}
+    for kv in ("native",) + (("fp8", "int8") if name == "granite-34b"
+                             else ()):
+        clock = {}
+        cb, done, wall_s, counts = serve_full(
+            model, params, prompts, kv, new_tokens=DENSE_ARCH_NEW,
+            clock=clock)
+        st = cb.stats
+        steps = st.chunks * CHUNK_STEPS
+        tr = cb.occupancy_bundle().traces["kv"]
+        decode_s = wall_s - clock["prefill_s"]
+        out[kv] = dict(
+            requests=len(done), prompt_tokens=int(sum(map(len, prompts))),
+            decode_tokens=st.decode_steps, decode_steps=steps,
+            chunks=st.chunks, prefills=st.prefills, wall_s=wall_s,
+            prefill_s=clock["prefill_s"],
+            tokens_per_s=st.decode_steps / wall_s,
+            # decode wall time (the batcher's host work included) per
+            # device step, the admission prefills taken out
+            ms_per_decode_step=1e3 * decode_s / steps,
+            page_bytes=cb.page_bytes, peak_pages=st.peak_pages,
+            trace_peak_bytes=tr.peak_needed(),
+            launches=count(kv, counts, {kv_kernel[kv]: L * steps,
+                                        "flash_attention": L * st.prefills}))
+        check(all(counts[k] == 0 for k in set(kv_kernel.values())
+                  - {kv_kernel[kv]}) and counts["paged_gqa_verify"] == 0,
+              f"{name} {kv}: no other decode kernel launched")
+        out[kv]["sweep"] = swept(kv, cb)
+        del cb, done
+    if name == "granite-34b":
+        scb, sdone, spec_s, counts = serve_full(
+            model, params, prompts, "native", speculate_k=SPEC_K,
+            new_tokens=DENSE_ARCH_NEW)
+        sst = scb.stats
+        rounds = sst.chunks * scb.spec_rounds_per_chunk
+        draft_layers = scb.draft_model.cfg.num_layers
+        check(sst.accepted_tokens == sst.decode_steps,
+              f"{name} spec: accepted tokens == decode tokens")
+        check(scb.ledger.allocator.n_allocated == 0
+              and int(scb.ledger.trace.as_arrays()[1][-1]) == 0,
+              f"{name} spec: the allocator drains to 0")
+        out["spec"] = dict(
+            speculate_k=SPEC_K, draft_layers=draft_layers, rounds_run=rounds,
+            spec_rounds=sst.spec_rounds, drafted_tokens=sst.drafted_tokens,
+            accepted_tokens=sst.accepted_tokens,
+            decode_tokens=sst.decode_steps, wall_s=spec_s,
+            tokens_per_s=sst.decode_steps / spec_s,
+            trace_peak_bytes=scb.occupancy_bundle().traces[
+                "kv"].peak_needed(),
+            launches=count("spec", counts, {
+                "paged_gqa_verify": L * rounds,
+                "paged_gqa_decode": draft_layers * (SPEC_K + 1) * rounds}))
+        out["spec"]["sweep"] = swept("spec", scb)
+        del scb, sdone
+        dense = serve_dense(model, params, prompts)
+        totals["gqa_decode"] = totals.get("gqa_decode", 0) + dense.pop(
+            "launches")
+        dense["server"]["ms_per_decode_step"] = (
+            1e3 * dense["server"]["decode_s"] / (DENSE_NEW - 1))
+        out["dense"] = dense
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t0
+    del model, params
+    torch.cuda.empty_cache()
+    return out, totals
+
+
+def dense_archs_phase(gen) -> tuple:
+    """The four dense assigned configs: kernels 1, 5, 6, 7 and 2 at their
+    shapes, each reduced (and granite at its group of 48) on the card
+    against the CPU through the paged, speculative, batched and dense
+    batchers, then each at full width. Returns (the phase's fields, the
+    summed launches of the full-width paths, the kernel rows)."""
+    t0 = time.perf_counter()
+    krows = dense_arch_kernel_rows(gen)
+    parity = {name: dense_arch_parity(name) for name in DENSE_ARCHS}
+    parity["granite-34b group 48"] = dense_arch_parity("granite-34b", True)
+    torch.cuda.empty_cache()
+    full, launches = {}, {}
+    for name in DENSE_ARCHS:
+        full[name], counts = dense_arch_full(name)
+        emit("dense_archs_full", **full[name])
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    def brief(f):
+        out = {k: f[k] for k in ("layers", "cut", "param_bytes",
+                                 "peak_device_bytes", "seconds")}
+        for kv in ("native", "fp8", "int8", "spec"):
+            if kv in f:
+                out[kv] = {x: f[kv][x] for x in ("tokens_per_s",
+                                                 "ms_per_decode_step")
+                           if x in f[kv]}
+        return out
+
+    fields = dict(
+        reduced=parity, full={n: brief(f) for n, f in full.items()},
+        kernel_rows={k: [{x: r[x] for x in (
+            "shape", "arch", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms") + tuple(
+            x for x in ("device_ms", "library_device_ms", "pools") if x in r)}
+            for r in v] for k, v in krows.items()},
+        launches=launches, seconds=time.perf_counter() - t0)
+    return fields, launches, krows
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["families", "encdec", "train"],
+    ap.add_argument("--only", choices=["dense_archs", "families", "encdec",
+                                       "train"],
                     help="build the kernels and run this phase alone (no "
                          "summary, no last line)")
     args = ap.parse_args()
@@ -2411,6 +2826,9 @@ def main() -> None:
          libraries=sorted(p.name for p in libs.values()))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if args.only == "dense_archs":
+        emit("dense_archs", **dense_archs_phase(gen)[0])
+        return
     if args.only == "families":
         emit("families", **families_phase(gen)[0])
         return
@@ -2422,6 +2840,13 @@ def main() -> None:
         return
     rows = kernel_phase(gen)
     emit("kernels", **rows)
+
+    # ---- dense_archs: qwen2-7b, tinyllama, deepseek-coder-33b, granite-34b
+    # reduced on the card against the CPU, then at full width; first, while
+    # nothing else holds device memory, so that the 33B models fit whole ----
+    torch.cuda.empty_cache()
+    dense_archs, da_launches, da_rows = dense_archs_phase(gen)
+    emit("dense_archs", **dense_archs)
 
     # ---- reference: the port on the card vs its plain path on the CPU ----
     small = reduced(get_arch(ARCH), layers=2)
@@ -2721,6 +3146,10 @@ def main() -> None:
                                   "device_ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms") if k in r}
 
+    def dense_archs_fields(name):
+        return dict(dense_archs_launches=da_launches.get(name, 0),
+                    dense_archs_rows=[fam_row(r) for r in da_rows[name]])
+
     offset = rows["flash_attention_offset"]
     flash = dict(
         rows["flash_attention"][0],
@@ -2737,7 +3166,10 @@ def main() -> None:
                                "offset_device_ms", "library_offset_ms",
                                "library_offset_device_ms", "bound_ms",
                                "bound_by")}))
-    flash.update(families_launches=fam_launches["flash_attention"],
+    flash.update(dense_archs_launches=da_launches["flash_attention"],
+                 dense_archs_rows=[fam_row(r)
+                                   for r in da_rows["flash_attention"]],
+                 families_launches=fam_launches["flash_attention"],
                  families_rows=[fam_row(r)
                                 for r in fam_rows["flash_attention"]],
                  encdec_launches=encdec_launches["flash_attention"],
@@ -2747,6 +3179,7 @@ def main() -> None:
     kernels = []
     for name, row in (("paged_gqa_decode",
                        dict(rows["paged_gqa_decode"][0],
+                            **dense_archs_fields("paged_gqa_decode"),
                             serve_obs_launches=obs_counts[
                                 "paged_gqa_decode"],
                             families_launches=fam_launches[
@@ -2755,7 +3188,8 @@ def main() -> None:
                                 "paged_gqa_decode"]])),
                       ("flash_attention", flash),
                       ("paged_gqa_decode_quant",
-                       rows["paged_gqa_decode_quant"][0]),
+                       dict(rows["paged_gqa_decode_quant"][0],
+                            **dense_archs_fields("paged_gqa_decode_quant"))),
                       ("int8_matmul", rows["int8_matmul"][0]),
                       ("exact_bank_stats",
                        dict(bank_main["exact_bank_stats"], dtype="float64",
@@ -2778,9 +3212,12 @@ def main() -> None:
                                 "bank_energy"],
                             families_launches=fam_launches["bank_energy"],
                             encdec_launches=encdec_launches["bank_energy"])),
-                      ("paged_gqa_verify", rows["paged_gqa_verify"][0]),
+                      ("paged_gqa_verify",
+                       dict(rows["paged_gqa_verify"][0],
+                            **dense_archs_fields("paged_gqa_verify"))),
                       ("gqa_decode", dict(
                           rows["gqa_decode"][0],
+                          **dense_archs_fields("gqa_decode"),
                           families_launches=fam_launches["gqa_decode"],
                           families_rows=[fam_row(r) for r in fam_rows[
                               "gqa_decode"]],
@@ -2803,6 +3240,8 @@ def main() -> None:
                                          "traffic_launches",
                                          "serve_obs_launches",
                                          "offset_cases",
+                                         "dense_archs_launches",
+                                         "dense_archs_rows",
                                          "families_launches",
                                          "families_rows",
                                          "encdec_launches",
@@ -2823,18 +3262,20 @@ def first_divergence(a, b) -> int:
 
 
 def serve_full(model, params, prompts, kv_dtype: str,
-               speculate_k=None):
+               speculate_k=None, new_tokens: int = NEW_TOKENS,
+               clock: dict = None):
     """The full-width stream through one batcher with `kv_dtype` pages (and
     speculation when `speculate_k` is set: the pool then holds both lanes),
     launch counts set to 0 just before and read just after. Checks that
-    every request finished with NEW_TOKENS in-vocab tokens and that each
+    every request finished with `new_tokens` in-vocab tokens and that each
     admission ran the prefill kernel once per layer (of the draft too).
-    Returns (batcher, finished requests by rid, wall seconds, launch
-    counts)."""
+    With `clock`, the target's prefills are synchronised and their seconds
+    summed into clock["prefill_s"]. Returns (batcher, finished requests by
+    rid, wall seconds, launch counts)."""
     from repro_torch.kernels import build
     from repro_torch.serve import PagedContinuousBatcher, Request
     cfg = model.cfg
-    per_slot = -(-(PROMPT_MAX + NEW_TOKENS - 1 + (speculate_k or 0))
+    per_slot = -(-(PROMPT_MAX + new_tokens - 1 + (speculate_k or 0))
                  // PAGE_SIZE)
     lanes = 1 if speculate_k is None else 2
     cb = PagedContinuousBatcher(
@@ -2842,22 +3283,38 @@ def serve_full(model, params, prompts, kv_dtype: str,
         num_pages=lanes * SLOTS * per_slot + 1, max_pages_per_slot=per_slot,
         chunk_steps=CHUNK_STEPS, kv_dtype=kv_dtype, speculate_k=speculate_k)
     for i, p in enumerate(prompts):
-        cb.submit(Request(rid=i, tokens=p, max_new_tokens=NEW_TOKENS))
+        cb.submit(Request(rid=i, tokens=p, max_new_tokens=new_tokens))
+    if clock is not None:
+        clock["prefill_s"] = 0.0
+        prefill = model.prefill
+
+        def timed_prefill(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = prefill(*a, **kw)
+            torch.cuda.synchronize()
+            clock["prefill_s"] += time.perf_counter() - t
+            return out
+        model.prefill = timed_prefill   # this instance only, removed below
     build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    done = sorted(cb.run(), key=lambda r: r.rid)
-    torch.cuda.synchronize()
+    try:
+        done = sorted(cb.run(), key=lambda r: r.rid)
+        torch.cuda.synchronize()
+    finally:
+        if clock is not None:
+            del model.prefill
     wall_s = time.perf_counter() - t0
     counts = build.launch_counts()
     st = cb.stats
     tag = kv_dtype if speculate_k is None else f"{kv_dtype} spec"
     check(len(done) == len(prompts) and st.finished == len(prompts),
           f"{tag}: all requests finished")
-    check(all(len(r.output) == NEW_TOKENS
+    check(all(len(r.output) == new_tokens
               and all(0 <= t < cfg.vocab_size for t in r.output)
               for r in done),
-          f"{tag}: every request has NEW_TOKENS in-vocab tokens")
+          f"{tag}: every request has its new tokens, in the vocabulary")
     layers = cfg.num_layers
     if speculate_k is not None:
         layers += cb.draft_model.cfg.num_layers

@@ -7,18 +7,36 @@
 // a pool (N, K, ps, d) (PagedRows) or base + strides into a dense cache
 // (StridedRows). A load policy turns 16 bytes of the cache into float32
 // (float, fp8 E4M3 and int8 caches; int8 rows also carry a float32 scale).
-// A block holds R = V * G query rows: the G query heads of the KV head
+// A KV head has R = V * G query rows: the G query heads of the KV head
 // (head h reads KV head h / G) for each of V window rows, laid out
 // window-major (row v * G + g), as the reference's verify kernel lays them
 // out. Window row v attends the first lengths[b] + v + len_add rows
 // (len_add 0 for decode, where V = 1; 1 for verify, whose lengths are the
 // context before the window), clamped to the cache.
 //
+// Any group: a block holds one chunk of a KV head's R rows, at most
+// kMaxRows rows and kThreads * kMaxAcc = 4096 query elements (the query
+// elements its threads hold in registers): 32 rows at d 128, 64 at d 64.
+// The chunks of a KV head are ceil(R / that) equal runs of consecutive
+// rows, folded into grid.x (KV head * chunks + chunk). Each block is the
+// block of an unchunked call restricted to its rows: it copies the split's
+// K/V rows up to its own widest horizon and keeps its rows' partials in the
+// layout of all R rows, so the merge is unchanged. Chunks across the grid,
+// not a loop over chunks inside a block: each chunk re-reads the split's
+// K/V tile, from L2 (one granite-34b layer, MQA with G = 48, at 8 slots x
+// 1,504 rows is 0.77 MB), and K = 1 gets more blocks on the card (granite's
+// decode runs 2 chunks, its k = 3 verify 192 rows in 6). A row's arithmetic
+// does not depend on the chunking: scores and softmax are per row, and P V's
+// row slicing depends on G and d alone (below), so verify row v still
+// equals decode at lengths[b] + v + 1 bit for bit whatever chunks hold
+// them. A chunk may span window rows; each row keeps its own horizon.
+//
 // Bound on the H100: every call reads each resident K and V row once and
 // does about 4 * R * d flops per row, a few flops per byte, so it is bound
 // by bytes. The context is split across blocks so that enough of them run
 // (decode_split_kernel, then decode_merge_kernel):
-//   * a grid of (KV head, sequence, split): split s walks the fixed rows
+//   * a grid of (KV head x row chunk, sequence, split): split s walks the
+//     fixed rows
 //     [s * kSplitRows, (s + 1) * kSplitRows), and the split count,
 //     ceil(cap / kSplitRows) for the cache's (or page table's) row capacity
 //     cap, depends on the cache's shape only, never on the lengths (which
@@ -62,7 +80,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxAcc = 16;     // query elements per thread: R * d <= 4096
+constexpr int kMaxAcc = 16;     // query elements per thread: 4096 a block
 constexpr int kMaxRows = 64;    // query rows per block: bounds shared memory
 constexpr int kSplitRows = 64;  // context rows per split block
 constexpr int kMergeRegs = 16;  // splits the merge loads per chunk
@@ -220,18 +238,31 @@ template <typename E>
 __host__ __device__ constexpr int split_row_ld(int d) {
   return d + 16 / static_cast<int>(sizeof(E));
 }
-// P V of one window row: G * (d / kVec) items of kVec sums, in
-// max(1, kThreads / items) row slices each
+// P V of one window row's heads in a chunk (at most min(G, rows) of
+// them): heads * (d / kVec) items of kVec sums, in max(1, kThreads / (G *
+// (d / kVec))) row slices each, so at most kThreads items in all when
+// there is more than one slice
 template <typename Load>
-__host__ __device__ inline int split_red_floats(int G, int d) {
-  return kThreads * Load::kVec > G * d ? kThreads * Load::kVec : G * d;
+__host__ __device__ inline int split_red_floats(int G, int rows, int d) {
+  const int heads = G < rows ? G : rows;
+  return kThreads * Load::kVec > heads * d ? kThreads * Load::kVec
+                                           : heads * d;
+}
+// query rows per block for R rows of head dim d: ceil(R / cap) equal
+// chunks, cap = min(kMaxRows, kThreads * kMaxAcc / d)
+__host__ __device__ inline int split_chunk_rows(int R, int d) {
+  const int cap = kMaxRows < kThreads * kMaxAcc / d ? kMaxRows
+                                                     : kThreads * kMaxAcc / d;
+  const int nchunk = (R + cap - 1) / cap;
+  return (R + nchunk - 1) / nchunk;
 }
 template <typename Load>
-__host__ __device__ inline int split_smem_bytes(int G, int R, int d) {
+__host__ __device__ inline int split_smem_bytes(int G, int rows, int d) {
   using E = typename Load::Elem;
   const int scales = Load::kScaled ? 2 * kSplitRows : 0;
   return 2 * kSplitRows * split_row_ld<E>(d) * static_cast<int>(sizeof(E)) +
-         (R * d + R * kSplitRows + split_red_floats<Load>(G, d) + scales) *
+         (rows * d + rows * kSplitRows + split_red_floats<Load>(G, rows, d) +
+          scales) *
              static_cast<int>(sizeof(float));
 }
 
@@ -239,7 +270,8 @@ __host__ __device__ inline int split_smem_bytes(int G, int R, int d) {
 // float and fp8 pools, which must equal it row for row and so runs the same
 // instances); without it V = 1 and len_add = 0 are constants (dense decode,
 // int8 paged decode), which keeps their index arithmetic, and their time,
-// that of a kernel written for one window row.
+// that of a kernel written for one window row. chunk_rows: the query rows
+// per block (split_chunk_rows), so grid.x is K * ceil(R / chunk_rows).
 template <typename Load, typename Rows, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const void* __restrict__ q,
@@ -249,7 +281,8 @@ decode_split_kernel(const void* __restrict__ q,
                     const float* __restrict__ vscale, const Rows rows,
                     const int* __restrict__ lengths,
                     float* __restrict__ part, int H, int K, int d,
-                    int window, int window_add, float scale, bool q_bf16) {
+                    int window, int window_add, int chunk_rows, float scale,
+                    bool q_bf16) {
   using E = typename Load::Elem;
   const int V = kWindow ? window : 1, len_add = kWindow ? window_add : 0;
   constexpr int kVec = Load::kVec;
@@ -257,21 +290,27 @@ decode_split_kernel(const void* __restrict__ q,
   const int G = H / K, R = V * G, nch = d / kVec, ld = split_row_ld<E>(d);
   E* k_sh = reinterpret_cast<E*>(smem_raw);                  // 64 x ld
   E* v_sh = k_sh + kSplitRows * ld;                          // 64 x ld
-  float* q_sh = reinterpret_cast<float*>(v_sh + kSplitRows * ld);  // R x d
-  float* w_sh = q_sh + R * d;  // R x 64: scores, then weights
-  float* red_sh = w_sh + R * kSplitRows;
-  float* ks_sh = red_sh + split_red_floats<Load>(G, d);
+  float* q_sh = reinterpret_cast<float*>(v_sh + kSplitRows * ld);  // rows x d
+  float* w_sh = q_sh + chunk_rows * d;  // rows x 64: scores, then weights
+  float* red_sh = w_sh + chunk_rows * kSplitRows;
+  float* ks_sh = red_sh + split_red_floats<Load>(G, chunk_rows, d);
   float* vs_sh = ks_sh + kSplitRows;  // scaled loads: 64 + 64
 
   // the merge launch may start; it waits for this grid to finish
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int nchunk = (R + chunk_rows - 1) / chunk_rows;
+  const int kh = blockIdx.x / nchunk, b = blockIdx.y, split = blockIdx.z;
+  // this block's query rows [r0, r0 + Rc) of the KV head's R
+  const int r0 = (blockIdx.x - kh * nchunk) * chunk_rows;
+  const int Rc = min(chunk_rows, R - r0);
   const int tid = threadIdx.x;
   const int t0 = split * kSplitRows;
   const int last = min(kSplitRows, rows.cap() - t0) - 1;  // >= 0
   // window row v's valid rows in the split: min(last + 1, n0 + v)
   const int n0 = lengths[b] + len_add - t0;
-  const int n = min(last + 1, n0 + V - 1);  // the widest window row's
+  const int v_lo = kWindow ? r0 / G : 0;
+  const int v_hi = kWindow ? (r0 + Rc - 1) / G : 0;
+  const int n = min(last + 1, n0 + v_hi);  // the block's widest window row's
 
   // Every global load is issued before any is waited on: the split's K/V
   // rows up to the widest horizon, copied to shared memory (the others
@@ -291,31 +330,33 @@ decode_split_kernel(const void* __restrict__ q,
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  // element i of query row v * G + g is q[b, v, kh * G + g, i - (v G + g) d]
+  // element i of the block's rows is element gi = r0 d + i of the KV
+  // head's; query row v * G + g is q[b, v, kh * G + g, :]
   float qx[kMaxAcc];
 #pragma unroll
   for (int j = 0; j < kMaxAcc; ++j) {
-    const int i = tid + j * kThreads, v = kWindow ? i / (G * d) : 0;
+    const int i = tid + j * kThreads, gi = r0 * d + i;
+    const int v = kWindow ? gi / (G * d) : 0;
     const size_t qi =
-        (static_cast<size_t>(b * V + v) * H + kh * G) * d + (i - v * G * d);
-    qx[j] = i >= R * d ? 0.f
-            : q_bf16   ? to_f32(static_cast<const __nv_bfloat16*>(q)[qi])
-                       : static_cast<const float*>(q)[qi];
+        (static_cast<size_t>(b * V + v) * H + kh * G) * d + (gi - v * G * d);
+    qx[j] = i >= Rc * d ? 0.f
+            : q_bf16    ? to_f32(static_cast<const __nv_bfloat16*>(q)[qi])
+                        : static_cast<const float*>(q)[qi];
   }
   float* pm = part + partial_offset(b, kh, split, K, gridDim.z, R, d);
   if (n <= 0) {  // wholly past every window row: drops out of the merge
-    for (int i = tid; i < R; i += kThreads) {
-      pm[i] = kNegInf;
-      pm[R + i] = 0.f;
+    for (int i = tid; i < Rc; i += kThreads) {
+      pm[r0 + i] = kNegInf;
+      pm[R + r0 + i] = 0.f;
     }
-    for (int i = tid; i < R * d; i += kThreads) pm[2 * R + i] = 0.f;
+    for (int i = tid; i < Rc * d; i += kThreads) pm[2 * R + r0 * d + i] = 0.f;
     asm volatile("cp.async.wait_all;\n" ::: "memory");  // before exiting
     return;
   }
 #pragma unroll
   for (int j = 0; j < kMaxAcc; ++j) {
     const int i = tid + j * kThreads;
-    if (i < R * d) q_sh[i] = qx[j] * scale;
+    if (i < Rc * d) q_sh[i] = qx[j] * scale;
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -327,8 +368,8 @@ decode_split_kernel(const void* __restrict__ q,
     constexpr int kRowSets = kThreads / kSplitRows;
     const int r = tid % kSplitRows;
     const uint4* krow = reinterpret_cast<const uint4*>(k_sh + r * ld);
-    for (int g = tid / kSplitRows; g < R; g += kRowSets) {
-      const int nv = kWindow ? min(last + 1, n0 + g / G) : n;
+    for (int g = tid / kSplitRows; g < Rc; g += kRowSets) {
+      const int nv = kWindow ? min(last + 1, n0 + (r0 + g) / G) : n;
       const float4* qg = reinterpret_cast<const float4*>(q_sh + g * d);
       float a[kVec];
 #pragma unroll
@@ -355,12 +396,12 @@ decode_split_kernel(const void* __restrict__ q,
   }
   __syncthreads();
 
-  // the split's softmax: warp w takes query rows w, w + 8, ...; lane j
-  // holds rows j and j + 32. P V's weights are p (times the row's V scale
-  // for scaled loads); l sums p. A query row with no valid row here gets
-  // m = -1e30, l = 0 (and acc = 0 below).
+  // the split's softmax: warp w takes the block's rows w, w + 8, ...; lane
+  // j holds K/V rows j and j + 32. P V's weights are p (times the row's V
+  // scale for scaled loads); l sums p. A query row with no valid row here
+  // gets m = -1e30, l = 0 (and acc = 0 below).
   const int lane = tid & 31, warp = tid >> 5;
-  for (int g = warp; g < R; g += kWarps) {
+  for (int g = warp; g < Rc; g += kWarps) {
     float* w = w_sh + g * kSplitRows;
     const float s0 = w[lane], s1 = w[lane + 32];
     const float m = warp_max(fmaxf(s0, s1));
@@ -375,24 +416,27 @@ decode_split_kernel(const void* __restrict__ q,
       w[lane + 32] = p1;
     }
     if (lane == 0) {
-      pm[g] = m;
-      pm[R + g] = l;
+      pm[r0 + g] = m;
+      pm[R + r0 + g] = l;
     }
   }
 
-  // acc = P V, one window row at a time over its own valid rows. Item
-  // (query head g, 16-byte chunk c of its output row); rs row slices per
-  // item, slice j summing rows j, j + rs, ... so that all threads work; the
-  // slices are then added in order 0, 1, .... Items and slices depend on G
-  // and d alone, never on V.
-  const int items = G * nch, rs = max(1, kThreads / items);
-  for (int v = 0; v < V; ++v) {
+  // acc = P V, one window row at a time over its own valid rows, for the
+  // heads [ga, gb) of that window row the block holds. Item (query head g,
+  // 16-byte chunk c of its output row); rs row slices per item, slice j
+  // summing rows j, j + rs, ... so that all threads work; the slices are
+  // then added in order 0, 1, .... The slicing depends on G and d alone,
+  // never on V or the chunk.
+  const int rs = max(1, kThreads / (G * nch));
+  for (int v = v_lo; v <= v_hi; ++v) {
     const int nv = min(last + 1, n0 + v);
+    const int ga = max(r0, v * G) - v * G;
+    const int items = (min(r0 + Rc, (v + 1) * G) - v * G - ga) * nch;
     __syncthreads();  // the weights, or the last window row's sums, are in
     for (int it = tid; it < items * rs; it += kThreads) {
       const int slice = it / items, item = it - slice * items;
-      const int g = item / nch, c = item - g * nch;
-      const float* w = w_sh + (v * G + g) * kSplitRows;
+      const int g = ga + item / nch, c = item % nch;
+      const float* w = w_sh + (v * G + g - r0) * kSplitRows;
       float acc[kVec];
 #pragma unroll
       for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
@@ -410,7 +454,7 @@ decode_split_kernel(const void* __restrict__ q,
     }
     __syncthreads();
     for (int it = tid; it < items; it += kThreads) {
-      const int g = it / nch, c = it - g * nch;
+      const int g = ga + it / nch, c = it % nch;
       float acc[kVec];
 #pragma unroll
       for (int e = 0; e < kVec; ++e) acc[e] = red_sh[it * kVec + e];
@@ -481,10 +525,10 @@ decode_merge_kernel(const float* __restrict__ part, O* __restrict__ out,
 // scaled load (else null); part holds B * K * nsplit * V * (H / K) * (d + 2)
 // floats, nsplit = ceil(cap / kSplitRows). Refuses (cudaErrorInvalidValue)
 // what the kernel does not take: a head dim that is not a whole number of
-// 16-byte chunks or is above 256, more than 64 query rows per KV head
-// (V * H / K) or 4096 elements of them, a scaled load without scales,
-// window rows (V > 1 or len_add > 0) without kWindow. Every row must start
-// 16-byte aligned (the caller checks).
+// 16-byte chunks or is above 256, a scaled load without scales, window
+// rows (V > 1 or len_add > 0) without kWindow. Any group and window: the
+// V * H / K query rows of a KV head run in split_chunk_rows chunks. Every
+// row must start 16-byte aligned (the caller checks).
 template <typename Load, bool kWindow, typename Rows>
 cudaError_t launch_decode_split(const void* q, const void* kc, const void* vc,
                                 const float* ks, const float* vs,
@@ -499,20 +543,19 @@ cudaError_t launch_decode_split(const void* q, const void* kc, const void* vc,
       (Load::kScaled && (ks == nullptr || vs == nullptr)) ||
       (!kWindow && (V != 1 || len_add != 0)))
     return cudaErrorInvalidValue;
-  const int G = H / K, R = V * G;
-  if (d % Load::kVec || d > 256 || R > kMaxRows ||
-      R * d > kThreads * kMaxAcc)
-    return cudaErrorInvalidValue;
-  const int smem = split_smem_bytes<Load>(G, R, d);
+  if (d <= 0 || d % Load::kVec || d > 256) return cudaErrorInvalidValue;
+  const int G = H / K, R = V * G, chunk_rows = split_chunk_rows(R, d);
+  const int nchunk = (R + chunk_rows - 1) / chunk_rows;
+  const int smem = split_smem_bytes<Load>(G, chunk_rows, d);
   cudaError_t err = cudaFuncSetAttribute(
       decode_split_kernel<Load, Rows, kWindow>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const bool q_bf16 = q_dtype == kBF16;
   decode_split_kernel<Load, Rows, kWindow>
-      <<<dim3(K, B, nsplit), kThreads, smem, stream>>>(
+      <<<dim3(K * nchunk, B, nsplit), kThreads, smem, stream>>>(
       q, static_cast<const E*>(kc), static_cast<const E*>(vc), ks, vs, rows,
-      lengths, part, H, K, d, V, len_add, scale, q_bf16);
+      lengths, part, H, K, d, V, len_add, chunk_rows, scale, q_bf16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // programmatic dependent launch: the merge is scheduled while the split

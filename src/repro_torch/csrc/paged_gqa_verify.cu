@@ -19,9 +19,12 @@
 // for operation, what kernel 1 computes at length base_lens[b] + v + 1.
 //
 // Bound on the H100: bytes, as kernel 1 (each resident row read once per
-// call; about 4 * V * H * d flops per row). The rows per block are limited
-// to 64 and rows x head_dim to 4096 (the query elements its threads hold):
-// k = 3 at dsr1d (4 x 6 x 128 = 3072) fits.
+// call; about 4 * V * H * d flops per row). A block holds at most 64 query
+// rows and 4096 query elements (rows x head_dim, in its threads'
+// registers); a KV head with more runs them in row chunks across the grid,
+// each re-reading the split's K/V rows from L2: k = 3 at dsr1d (4 x 6 x
+// 128 = 3072 elements) takes one block per (KV head, slot, split),
+// granite-34b's MQA group of 48 (4 x 48 = 192 rows at d 128) six.
 #include "decode_attention.cuh"
 
 // q: (B, V, H, d) float32 (q_dtype 0) or bfloat16 (1); kp, vp: (N, K, ps, d)

@@ -40,8 +40,8 @@ from repro_torch.traffic import (LengthModel, generate_workload,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dsr1d-qwen-1.5b",
-                    choices=["dsr1d-qwen-1.5b", "gpt2-xl", "tinyllama-1.1b"])
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="any registry arch (repro_torch.configs)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=10)
     ap.add_argument("--new-tokens", type=int, default=8)

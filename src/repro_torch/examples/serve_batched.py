@@ -27,8 +27,8 @@ from repro_torch.serve import (BatchedServer, ContinuousBatcher, Request,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dsr1d-qwen-1.5b",
-                    choices=["dsr1d-qwen-1.5b", "gpt2-xl"])
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="any registry arch (repro_torch.configs)")
     ap.add_argument("--full-width", action="store_true",
                     help="the config's published widths (default: reduced)")
     ap.add_argument("--device", default="cuda")

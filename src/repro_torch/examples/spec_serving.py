@@ -51,8 +51,8 @@ def run(model, params, prompts, new_tokens, **kw):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dsr1d-qwen-1.5b",
-                    choices=["dsr1d-qwen-1.5b", "gpt2-xl"])
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="any registry arch (repro_torch.configs)")
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--speculate", type=int, default=3)
     ap.add_argument("--new-tokens", type=int, default=14)

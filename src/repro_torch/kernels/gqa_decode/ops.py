@@ -23,10 +23,6 @@ from repro_torch.kernels.gqa_decode.ref import SPLIT_ROWS, gqa_decode_ref
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 256
-# query rows a block holds (the group), and rows x head_dim: see
-# csrc/decode_attention.cuh kMaxRows and kThreads * kMaxAcc
-MAX_ROWS = 64
-MAX_ROW_ELEMS = 4096
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +50,31 @@ def _aligned(k: torch.Tensor, v: torch.Tensor) -> tuple:
     return (k, v) if ok else (k.contiguous(), v.contiguous())
 
 
+def check_dense(q, k, v, lengths) -> tuple:
+    """The dense kernel's shapes, types and limits: any GQA group (a KV
+    head's query rows run in chunks of `csrc/decode_attention.cuh`'s
+    `split_chunk_rows`), a head dim up to MAX_HEAD_DIM that is a whole
+    number of 16-byte pieces. Returns (B, H, K, d, T)."""
+    B, H, d = q.shape
+    _, K, T, _ = k.shape
+    if (k.shape != (B, K, T, d) or v.shape != k.shape or v.dtype != k.dtype
+            or H % K or lengths.shape != (B,)):
+        raise ValueError(f"gqa_decode: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} "
+                         f"lengths{tuple(lengths.shape)}")
+    if q.dtype not in Q_DTYPES or k.dtype not in CACHE_DTYPES:
+        raise TypeError(f"gqa_decode: q must be float32 or bfloat16 and the "
+                        f"cache float32, bfloat16 or float16; got {q.dtype} "
+                        f"/ {k.dtype}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"gqa_decode: head_dim {d} beyond the kernel's "
+                         f"{MAX_HEAD_DIM}")
+    if (d * k.element_size()) % 16:
+        raise ValueError(f"gqa_decode: head_dim {d} of {k.dtype} is not a "
+                         f"whole number of 16-byte pieces")
+    return B, H, K, d, T
+
+
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, H, d) float32/bfloat16; k, v: (B, K, T, d) float32, bfloat16
@@ -70,24 +91,7 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `gqa_decode_ref`."""
     if q.device.type != "cuda":
         return gqa_decode_ref(q, k, v, lengths)
-    B, H, d = q.shape
-    _, K, T, _ = k.shape
-    if (k.shape != (B, K, T, d) or v.shape != k.shape or v.dtype != k.dtype
-            or H % K or lengths.shape != (B,)):
-        raise ValueError(f"gqa_decode: bad shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)} "
-                         f"lengths{tuple(lengths.shape)}")
-    if q.dtype not in Q_DTYPES or k.dtype not in CACHE_DTYPES:
-        raise TypeError(f"gqa_decode: q must be float32 or bfloat16 and the "
-                        f"cache float32, bfloat16 or float16; got {q.dtype} "
-                        f"/ {k.dtype}")
-    if d > MAX_HEAD_DIM or H // K > MAX_ROWS or H // K * d > MAX_ROW_ELEMS:
-        raise ValueError(f"gqa_decode: head_dim {d} / group {H // K} beyond "
-                         f"the kernel's {MAX_HEAD_DIM} / {MAX_ROWS} / "
-                         f"{MAX_ROW_ELEMS} accumulators")
-    if (d * k.element_size()) % 16:
-        raise ValueError(f"gqa_decode: head_dim {d} of {k.dtype} is not a "
-                         f"whole number of 16-byte pieces")
+    B, H, K, d, T = check_dense(q, k, v, lengths)
     q = q.contiguous()
     k, v = _aligned(k, v)
     lens = lengths.to(torch.int32).contiguous()

@@ -29,7 +29,6 @@ Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                FP8_STORAGE_DTYPE: 3}
 MAX_HEAD_DIM = 256
-MAX_GROUP = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,7 +45,9 @@ QUANT_KERNEL = build.register(build.CudaKernel(
 
 def check_paged(name, q, k_pages, v_pages, page_table, lengths):
     """Shapes, types and limits the paged kernels share (q: (B, H, d), one
-    window row); returns (B, H, K, d, ps, P, N) and the int32 table and
+    window row): any GQA group (a KV head's query rows run in chunks of
+    `csrc/decode_attention.cuh`'s `split_chunk_rows`), a head dim up to
+    MAX_HEAD_DIM. Returns (B, H, K, d, ps, P, N) and the int32 table and
     lengths."""
     B, H, d = q.shape
     N, K, ps, _ = k_pages.shape
@@ -62,9 +63,9 @@ def check_paged(name, q, k_pages, v_pages, page_table, lengths):
     if q.dtype not in Q_DTYPES:
         raise TypeError(f"{name}: q must be float32 or bfloat16, got "
                         f"{q.dtype}")
-    if d > MAX_HEAD_DIM or H // K > MAX_GROUP:
-        raise ValueError(f"{name}: head_dim {d} / group {H // K} beyond the "
-                         f"kernel's {MAX_HEAD_DIM} / {MAX_GROUP}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {d} beyond the kernel's "
+                         f"{MAX_HEAD_DIM}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError(f"{name}: page pools must be contiguous")
     table = page_table.to(torch.int32).contiguous()

@@ -22,18 +22,29 @@ from repro_torch.kernels.paged_gqa_decode.ops import (POOL_DTYPES, Q_DTYPES,
                                                       split_workspace)
 from repro_torch.kernels.paged_gqa_verify.ref import paged_gqa_verify_ref
 
-# query rows a block holds (window rows x group), and the query elements
-# its threads hold (rows x head_dim): csrc/decode_attention.cuh kMaxRows
-# and kThreads * kMaxAcc
-MAX_ROWS = 64
-MAX_ROW_ELEMS = 4096
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = build.register(build.CudaKernel(
     "paged_gqa_verify", "paged_gqa_verify", "paged_gqa_verify_fwd",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
      ctypes.c_float, _I, _I, _I, _P]))
+
+
+def check_verify(q, k_pages, v_pages, page_table, base_lens):
+    """The verify kernel's shapes, types and limits: q (B, V, H, d), then
+    `check_paged`'s for one window row and pool types of `POOL_DTYPES`.
+    Any V x group query rows per KV head (they run in row chunks). Returns
+    (B, H, K, d, ps, P, N), V and the int32 table and base lengths."""
+    if q.dim() != 4:
+        raise ValueError(f"paged_gqa_verify: q must be (B, V, H, d), got "
+                         f"{tuple(q.shape)}")
+    dims, table, lens = check_paged("paged_gqa_verify", q[:, 0], k_pages,
+                                    v_pages, page_table, base_lens)
+    if k_pages.dtype not in POOL_DTYPES:
+        raise TypeError(f"paged_gqa_verify: pools must be float32, bfloat16, "
+                        f"float16 or fp8 codes, got {k_pages.dtype}")
+    check_split("paged_gqa_verify", k_pages, v_pages)
+    return dims, q.shape[1], table, lens
 
 
 def paged_gqa_verify(q: torch.Tensor, k_pages: torch.Tensor,
@@ -52,27 +63,12 @@ def paged_gqa_verify(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         return paged_gqa_verify_ref(q, k_pages, v_pages, page_table,
                                     base_lens)
-    if q.dim() != 4:
-        raise ValueError(f"paged_gqa_verify: q must be (B, V, H, d), got "
-                         f"{tuple(q.shape)}")
-    dims, table, lens = check_paged("paged_gqa_verify", q[:, 0], k_pages,
-                                    v_pages, page_table, base_lens)
-    if k_pages.dtype not in POOL_DTYPES:
-        raise TypeError(f"paged_gqa_verify: pools must be float32, bfloat16, "
-                        f"float16 or fp8 codes, got {k_pages.dtype}")
+    dims, V, table, lens = check_verify(q, k_pages, v_pages, page_table,
+                                        base_lens)
     B, H, K, d, ps, P, N = dims
-    V = q.shape[1]
-    rows = V * (H // K)
-    if rows > MAX_ROWS or rows * d > MAX_ROW_ELEMS:
-        raise ValueError(
-            f"paged_gqa_verify: {V} window rows x group {H // K} = {rows} "
-            f"query rows of head_dim {d} exceed the kernel's {MAX_ROWS} rows "
-            f"/ {MAX_ROW_ELEMS} query elements per block; use a smaller "
-            "speculate_k")
-    check_split("paged_gqa_verify", k_pages, v_pages)
     q = q.contiguous()
     out = torch.empty_like(q)
-    nsplit, work = split_workspace(q, dims, rows)
+    nsplit, work = split_workspace(q, dims, V * (H // K))
     KERNEL(build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
            build.ptr(table), build.ptr(lens), build.ptr(out), build.ptr(work),
            B, V, H, K, d, ps, P, N, 1.0 / math.sqrt(d), Q_DTYPES[q.dtype],

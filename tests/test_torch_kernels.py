@@ -254,13 +254,16 @@ def _verify_case_on_card(seed, B, H, K, d, ps, P, N, V):
 def test_verify_kernel_matches_plain_version_and_decode_on_card():
     """Kernel 6 against its plain version on float32, bfloat16 and fp8
     pools, and row v against kernel 1 at base + v + 1: the same
-    operations, so bit for bit."""
+    operations, so bit for bit. V 6 at group 6 and d 128 (36 rows, 4,608
+    query elements) runs in two row chunks; a head dim above 256 is
+    refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels.paged_gqa_verify import (paged_gqa_verify,
                                                       paged_gqa_verify_ref)
     from repro_torch.kernels.quant import to_fp8_codes
-    for H, K, d, V in [(12, 2, 128, 4), (25, 25, 64, 3), (8, 2, 32, 2)]:
+    for H, K, d, V in [(12, 2, 128, 4), (25, 25, 64, 3), (8, 2, 32, 2),
+                       (12, 2, 128, 6)]:
         q, kp, vp, table, base = _verify_case_on_card(V + H, 3, H, K, d, 16,
                                                       6, 40, V)
         for pools, qd, tol in (((kp, vp), torch.float32, ATOL),
@@ -276,9 +279,9 @@ def test_verify_kernel_matches_plain_version_and_decode_on_card():
                 row = paged_gqa_decode(q[:, v].to(qd), *pools, table,
                                        base + v + 1)
                 assert torch.equal(got[:, v], row)
-    q, kp, vp, table, base = _verify_case_on_card(0, 2, 12, 2, 128, 16, 6,
-                                                  40, 6)
-    with pytest.raises(ValueError, match="speculate_k"):
+    q, kp, vp, table, base = _verify_case_on_card(0, 2, 12, 2, 512, 16, 6,
+                                                  40, 2)
+    with pytest.raises(ValueError, match="head_dim 512"):
         paged_gqa_verify(q, kp, vp, table, base)
 
 
