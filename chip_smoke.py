@@ -89,12 +89,19 @@ walk are timed apart beside the serial floor (a small kernel adding the
 trace's length of f64 numbers in one thread) and its running time is held
 to np.cumsum bit for bit; both bank kernels give the same bits twice.
 The bank kernels are also timed at each decode horizon's own shape.
+Last (`roofline`), full-width dsr1d-qwen-1.5b and gpt2-xl run one prefill
+of B1 x S2048 (kernel 2) and one dense decode step of B8 over 2,048 rows
+(kernel 7), each timed against the ideal time of `launch/roofline.py`'s
+H100 roofline (a time below it less 5% fails the phase); the reduced model
+is placed on the host mesh (`make_host_mesh()`) and served under it; and
+the dry run (`launch/dryrun.py`, decode_32k on both production meshes)
+and its report run in subprocesses.
 Each phase prints one JSON line (device, kernels, dense_archs_init and
 dense_archs_full for each dense config, dense_archs, reference,
 reference_prefix, serve, stage2, bank_kernels, serve_quant, stage2_quant,
 int8_ffn, serve_spec, serve_dense, serve_prefix, traffic, serve_obs,
-stage1, families_full for each family, families, encdec, train); the
-last three
+stage1, families_full for each family, families, encdec, train,
+roofline); the last three
 lines are the kernel summary, the card's `nvidia-smi` name and power
 limit, then
 
@@ -104,8 +111,9 @@ Any failed phase raises: the script exits nonzero without that line, as it
 does when no CUDA device is present.
 
 Run from the root of the repository:  python3 chip_smoke.py
-(`--only dense_archs`, `--only families`, `--only encdec` or `--only
-train` builds the kernels and runs that phase alone.)
+(`--only dense_archs`, `--only families`, `--only encdec`, `--only
+train` or `--only roofline` builds the kernels and runs that phase
+alone.)
 """
 from __future__ import annotations
 
@@ -229,6 +237,18 @@ DENSE_ARCHS = ("tinyllama-1.1b", "qwen2-7b", "deepseek-coder-33b",
 GROUP48 = dict(num_heads=48, num_kv_heads=1, head_dim=128)
 DENSE_ARCH_REQUESTS, DENSE_ARCH_NEW = 8, 32
 DENSE_ARCH_RESERVE = 6 << 30
+# the roofline phase: the two paper models at full width (random bf16
+# weights), one prefill of B x S and one dense decode step of B rows over a
+# cache of T rows, each timed (CUDA events, the median of ROOFLINE_REPS
+# calls after ROOFLINE_WARMUP) against the roofline's ideal time on one card
+# (`launch/roofline.py`); a time below the ideal less ROOFLINE_MARGIN would
+# mean a wrong constant or count. Kernels 2 and 7 are first held against
+# their plain versions at these shapes (flash_row with prefix rows cut to
+# ROOFLINE_PREFIX, dense_row). Then the host mesh and the dry run CLI
+ROOFLINE_ARCHS = ("dsr1d-qwen-1.5b", "gpt2-xl")
+ROOFLINE_PREFILL, ROOFLINE_DECODE = (1, 2048), (8, 2048)
+ROOFLINE_PREFIX = 1000
+ROOFLINE_REPS, ROOFLINE_WARMUP, ROOFLINE_MARGIN = 7, 2, 0.05
 
 
 def emit(phase: str, **fields) -> None:
@@ -280,6 +300,29 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
+
+
+def device_busy_ms(fn):
+    """Milliseconds in which the card ran work during one call of `fn`:
+    the union of torch.profiler's device events (kernels, copies), overlaps
+    merged. None where the profiler records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
 
 
 def timed(fn, lib) -> dict:
@@ -2786,11 +2829,234 @@ def dense_archs_phase(gen) -> tuple:
     return fields, launches, krows
 
 
+def roofline_phase(smi: str) -> tuple:
+    """Measured steps against the H100 roofline, the host mesh and the dry
+    run. For each of ROOFLINE_ARCHS at full width, kernel 2 (`flash_row`,
+    bf16, B1 x S) and kernel 7 (`dense_row`, bf16, B rows of T) are first
+    held against their plain versions at the steps' own shapes. Then
+    `prefill` at ROOFLINE_PREFILL (kernel 2 in every layer) and
+    `decode_step` at ROOFLINE_DECODE over a full dense cache of random rows
+    (kernel 7 in every layer; the position is reset to the cache's last row
+    before each call), each held to max(model_flops / PEAK_FLOPS,
+    min_hbm_bytes / HBM_BW) of a `ShapeConfig` of its kind, batch and
+    length on one card, less ROOFLINE_MARGIN, with launches counted from 0
+    around the timed calls; one more call of each under torch.profiler
+    gives the card's busy time (`device_busy_ms`). Then `make_host_mesh()`
+    (a (1, 1) mesh over the card, a single-rank NCCL group destroyed
+    after): the reduced dsr1d-qwen-1.5b's parameters placed on it by
+    `template_shardings`; DTensors through `meshctx.constrain` and the
+    windowed attention's `_constrain_chunks`, redistributed to the specs'
+    placements with their values kept; and the reduced model's
+    `BatchedServer` tokens under `use_mesh` against those without (its
+    layers are full attention and its tensors plain, so this shows only
+    that the context changes nothing). Then the dry run CLI (decode_32k on
+    both production meshes) and the report CLI, in subprocesses. Returns
+    (fields, launch counts of the timed calls, kernel rows)."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.kernels import build
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import DecoderLM, init_cache
+    from repro_torch.models.attention import _constrain_chunks
+    from repro_torch.models.meshctx import constrain, use_mesh
+    from repro_torch.models.sharding import SERVE_RULES, template_shardings
+    from repro_torch.params import (init_params, map_tree, param_axes,
+                                    param_specs)
+    from repro_torch.serve import BatchedServer, ServeConfig
+    t_phase = time.perf_counter()
+    calls = ROOFLINE_REPS + ROOFLINE_WARMUP
+    counts = {"flash_attention": 0, "gqa_decode": 0}
+    krows = {"flash_attention": [], "gqa_decode": []}
+    steps = []
+    for name in ROOFLINE_ARCHS:
+        torch.cuda.empty_cache()
+        cfg = get_arch(name)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        krows["flash_attention"].append(flash_row(
+            gen, name, cfg, ROOFLINE_PREFILL[1], ROOFLINE_PREFIX,
+            torch.bfloat16))
+        Bd, T = ROOFLINE_DECODE
+        krows["gqa_decode"].append(dense_row(gen, name, cfg, [T] * Bd,
+                                             torch.bfloat16, T=T))
+        model = DecoderLM(cfg, compute_dtype=torch.bfloat16, device="cuda")
+        params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+        B, S = ROOFLINE_PREFILL
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        logits, cache = model.prefill(params, {"tokens": tokens}, S)
+        check(logits.shape == (B, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"{name} prefill logits finite, (B, 1, V)")
+        del logits, cache
+        build.reset_launch_counts()
+        prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens},
+                                                   S),
+                             reps=ROOFLINE_REPS, warmup=ROOFLINE_WARMUP)
+        n = build.launch_counts()
+        check(n["flash_attention"] == cfg.num_layers * calls,
+              f"{name} prefill: kernel 2 launched {n['flash_attention']} == "
+              f"layers x calls {cfg.num_layers * calls}")
+        counts["flash_attention"] += n["flash_attention"]
+        prefill_busy = device_busy_ms(
+            lambda: model.prefill(params, {"tokens": tokens}, S))
+
+        cache = init_cache(cfg, Bd, T, torch.bfloat16, "cuda")
+        for e in cache["slots"] + cache["tail"]:
+            for x in e.values():
+                x.normal_(generator=gen)
+        tok = torch.randint(0, cfg.vocab_size, (Bd, 1), generator=gen,
+                            device="cuda", dtype=torch.int32)
+
+        def decode():
+            cache["pos"] = T - 1
+            return model.decode_step(params, cache, tok)
+        logits, _ = decode()
+        check(logits.shape == (Bd, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"{name} decode logits finite, (B, 1, V)")
+        build.reset_launch_counts()
+        decode_ms = cuda_ms(decode, reps=ROOFLINE_REPS,
+                            warmup=ROOFLINE_WARMUP)
+        n = build.launch_counts()
+        check(n["gqa_decode"] == cfg.num_layers * calls,
+              f"{name} decode: kernel 7 launched {n['gqa_decode']} == "
+              f"layers x calls {cfg.num_layers * calls}")
+        counts["gqa_decode"] += n["gqa_decode"]
+        decode_busy = device_busy_ms(decode)
+
+        for kind, (b, s), ms, busy in (
+                ("prefill", ROOFLINE_PREFILL, prefill_ms, prefill_busy),
+                ("decode", ROOFLINE_DECODE, decode_ms, decode_busy)):
+            shape = ShapeConfig(f"{kind}_{s}", s, b, kind)
+            flops = rl.model_flops(cfg, shape)
+            nbytes = rl.min_hbm_bytes(cfg, shape, 1)
+            ideal_ms = rl.ideal_seconds(cfg, shape, 1) * 1e3
+            check(ms >= (1.0 - ROOFLINE_MARGIN) * ideal_ms,
+                  f"{name} {kind}: measured {ms} ms below the roofline's "
+                  f"ideal {ideal_ms} ms less {ROOFLINE_MARGIN:.0%}")
+            steps.append(dict(
+                arch=name, kind=kind, batch=b, seq_len=s, ms=ms,
+                ideal_ms=ideal_ms, ratio=ms / ideal_ms,
+                # one profiled call: the card's busy time, and its share of
+                # the median step (None: the profiler saw no device event)
+                device_busy_ms=busy,
+                busy_share=None if busy is None else busy / ms,
+                bound_by=("operations" if flops / rl.PEAK_FLOPS
+                          >= nbytes / rl.HBM_BW else "bytes"),
+                model_flops=flops, min_hbm_bytes=nbytes,
+                kernel="flash_attention" if kind == "prefill"
+                else "gqa_decode"))
+        del model, params, cache, logits
+    torch.cuda.empty_cache()
+
+    # the host mesh: (1, 1) over the card; the reduced model placed on it
+    # and served with and without it
+    mesh = make_host_mesh()
+    check(tuple(mesh.mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+          and mesh.mesh_dim_names == ("data", "model"),
+          "make_host_mesh() is a (1, 1) (data, model) mesh over cuda")
+    small = reduced(get_arch(ARCH), layers=2)
+    sp = init_params(small, torch.Generator(device="cuda").manual_seed(SEED),
+                     device="cuda")
+    placed = map_tree(template_shardings(param_axes(small),
+                                         param_specs(small), mesh,
+                                         SERVE_RULES), sp,
+                      lambda pl, x, _: distribute_tensor(x, mesh, pl))
+    n_leaves = [0]
+
+    def same(d, x, _):
+        check(isinstance(d, DTensor) and torch.equal(d.to_local(), x),
+              "a placed leaf's local shard is the leaf")
+        n_leaves[0] += 1
+    map_tree(placed, sp, same)
+    del placed
+
+    # a DTensor through the constraints: the windowed attention's chunks
+    # (B, nc, W, K, G, h) and (B, nc, W, K, h); "pod" is not on the mesh
+    both = [Replicate(), Replicate()]
+    qc = torch.randn((2, 3, 4, 2, 3, 8), generator=gen, device="cuda")
+    kc = torch.randn((2, 3, 4, 2, 8), generator=gen, device="cuda")
+    dq, dk = (distribute_tensor(x, mesh, both) for x in (qc, kc))
+    with use_mesh(mesh):
+        cq, ck, cv = _constrain_chunks(dq, dk, dk)
+        cx = constrain(dk, (("pod", "data"), None, "model"))
+    for got, want, pl in ((cq, qc, (Shard(0), Shard(2))),
+                          (ck, kc, (Shard(0), Replicate())),
+                          (cv, kc, (Shard(0), Replicate())),
+                          (cx, kc, (Shard(0), Shard(2)))):
+        check(isinstance(got, DTensor) and tuple(got.placements) == pl
+              and torch.equal(got.full_tensor(), want),
+              f"constrain: placements {got.placements} == {pl}, values kept")
+    sm = DecoderLM(small, compute_dtype=torch.float32, device="cuda")
+    prompts = np.random.default_rng(SEED).integers(0, small.vocab_size,
+                                                   (4, 24))
+
+    def serve():
+        srv = BatchedServer(sm, sp, ServeConfig(max_len=64,
+                                                max_new_tokens=8))
+        return srv.generate({"tokens": prompts})["tokens"]
+    plain = serve()
+    with use_mesh(mesh):
+        meshed = serve()
+    check(np.array_equal(plain, meshed),
+          "reduced serve tokens under use_mesh == without")
+    dist.destroy_process_group()
+    host_mesh = dict(shape=list(mesh.mesh.shape), device=mesh.device_type,
+                     placed_leaves=n_leaves[0], arch=small.name,
+                     dtensors_constrained=4,
+                     # full-attention layers on plain tensors: no constraint
+                     # acts in this serve
+                     tokens_equal_under_use_mesh=True)
+    del sp, sm
+
+    # the dry run and its report, in subprocesses (neither uses the card)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+
+    def run(args):
+        r = subprocess.run([sys.executable, "-m", *args], env=env,
+                           capture_output=True, text=True, timeout=300)
+        check(r.returncode == 0, f"{args[0]} exited {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        return r.stdout
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "dryrun.json"
+        run(["repro_torch.launch.dryrun", "--arch", ARCH, "--shape",
+             "decode_32k", "--mesh", "both", "--out", str(out)])
+        cells = json.loads(out.read_text())
+        report = run(["repro_torch.launch.report", str(out)])
+    check([(c["status"], c.get("chips")) for c in cells]
+          == [("OK", 256), ("OK", 512)],
+          f"dry run cells OK on 256 and 512 chips: "
+          f"{[(c['status'], c.get('chips')) for c in cells]}")
+    check("cells: OK=2 SKIP=0 FAIL=0" in report, "report renders 2 OK cells")
+    dryrun = dict(arch=ARCH, shape="decode_32k", wall_s=time.perf_counter()
+                  - t0, cells=[dict(mesh=c["mesh"], chips=c["chips"],
+                                    place_s=c["compile_s"],
+                                    count_s=c["probe_s"],
+                                    roofline={k: c["roofline"][k] for k in (
+                                        "t_compute_ms", "t_memory_ms",
+                                        "t_collective_ms", "dominant",
+                                        "roofline_fraction")})
+                               for c in cells])
+    return (dict(nvidia_smi=smi, peak_flops=rl.PEAK_FLOPS,
+                 hbm_bw=rl.HBM_BW, link_bw=rl.LINK_BW,
+                 margin=ROOFLINE_MARGIN, reps=ROOFLINE_REPS, steps=steps,
+                 host_mesh=host_mesh, dryrun=dryrun, launches=counts,
+                 kernel_rows=krows, seconds=time.perf_counter() - t_phase),
+            counts, krows)
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["dense_archs", "families", "encdec",
-                                       "train"],
+                                       "train", "roofline"],
                     help="build the kernels and run this phase alone (no "
                          "summary, no last line)")
     args = ap.parse_args()
@@ -2837,6 +3103,9 @@ def main() -> None:
         return
     if args.only == "train":
         emit("train", **train_phase())
+        return
+    if args.only == "roofline":
+        emit("roofline", **roofline_phase(smi)[0])
         return
     rows = kernel_phase(gen)
     emit("kernels", **rows)
@@ -3141,6 +3410,11 @@ def main() -> None:
     # ---- train: reduced on the card vs CPU, full-width tinyllama CLI ----
     emit("train", **train_phase())
 
+    # ---- roofline: measured prefill and decode against the H100 roofline,
+    # the host mesh, the dry run and its report ----
+    roofline, roofline_counts, roofline_rows = roofline_phase(smi)
+    emit("roofline", **roofline)
+
     def fam_row(r):
         return {k: r[k] for k in ("shape", "arch", "max_abs_err", "ms",
                                   "device_ms", "plain_ms", "bound_ms",
@@ -3166,7 +3440,10 @@ def main() -> None:
                                "offset_device_ms", "library_offset_ms",
                                "library_offset_device_ms", "bound_ms",
                                "bound_by")}))
-    flash.update(dense_archs_launches=da_launches["flash_attention"],
+    flash.update(roofline_launches=roofline_counts["flash_attention"],
+                 roofline_rows=[fam_row(r)
+                                for r in roofline_rows["flash_attention"]],
+                 dense_archs_launches=da_launches["flash_attention"],
                  dense_archs_rows=[fam_row(r)
                                    for r in da_rows["flash_attention"]],
                  families_launches=fam_launches["flash_attention"],
@@ -3222,6 +3499,9 @@ def main() -> None:
                           families_rows=[fam_row(r) for r in fam_rows[
                               "gqa_decode"]],
                           encdec_launches=encdec_launches["gqa_decode"],
+                          roofline_launches=roofline_counts["gqa_decode"],
+                          roofline_rows=[fam_row(r) for r in roofline_rows[
+                              "gqa_decode"]],
                           encdec_rows=[fam_row(r) for r in encdec_rows[
                               "gqa_decode"]]))):
         # rows[...][0] is the main path's dtype (bfloat16)
@@ -3245,7 +3525,9 @@ def main() -> None:
                                          "families_launches",
                                          "families_rows",
                                          "encdec_launches",
-                                         "noncausal_cases", "encdec_rows")
+                                         "noncausal_cases", "encdec_rows",
+                                         "roofline_launches",
+                                         "roofline_rows")
                if key in row}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.gqa_decode import gqa_decode
+from repro_torch.models.meshctx import constrain
 
 NEG_INF = -1.0e30
 
@@ -41,6 +42,17 @@ def project_qkv(cfg, p: dict, xq: torch.Tensor, xkv: torch.Tensor):
     return q, k, v
 
 
+def _constrain_chunks(qc, kc, vc):
+    """The reference's sharding of windowed attention under a mesh: query
+    rows within each chunk over "model", the (GQA-small) K/V replicated,
+    the batch over ("pod", "data") (`meshctx.constrain`: no-ops without a
+    mesh or on plain tensors)."""
+    bspec = ("pod", "data")
+    return (constrain(qc, (bspec, None, "model", None, None, None)),
+            constrain(kc, (bspec, None, None, None, None)),
+            constrain(vc, (bspec, None, None, None, None)))
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       window: int) -> torch.Tensor:
     """llama4's chunked attention: causal attention within chunks of
@@ -56,6 +68,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qc = q.reshape(B, nc, W, K, G, h).float() * scale
     kc = k.reshape(B, nc, W, K, h).float()
     vc = v.reshape(B, nc, W, K, h).float()
+    qc, kc, vc = _constrain_chunks(qc, kc, vc)
     s = torch.einsum("bcskgh,bctkh->bcskgt", qc, kc)
     causal = torch.tril(torch.ones((W, W), dtype=torch.bool,
                                    device=q.device))
@@ -81,6 +94,7 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qc = q.reshape(B, nc, W, K, G, h).float() * scale
     kc = k.reshape(B, nc, W, K, h)
     vc = v.reshape(B, nc, W, K, h)
+    qc, kc, vc = _constrain_chunks(qc, kc, vc)
     kprev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
     vprev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
     k2 = torch.cat([kprev, kc], dim=2).float()           # (B, nc, 2W, K, h)

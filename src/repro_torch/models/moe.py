@@ -58,7 +58,10 @@ def dispatch(cfg, top_e: torch.Tensor, C: int):
     eid = top_e.reshape(-1)
     N = eid.shape[0]
     order = torch.argsort(eid, stable=True)
-    hist = torch.bincount(eid, minlength=E)
+    # per-expert counts (a bincount with a static length E, so that the
+    # dry run's fake tensors can trace it)
+    hist = torch.zeros(E, dtype=eid.dtype, device=eid.device).scatter_add_(
+        0, eid, torch.ones_like(eid))
     starts = torch.cumsum(hist, 0) - hist
     rank_sorted = torch.arange(N, device=eid.device) - starts[eid[order]]
     pos = torch.empty_like(eid)

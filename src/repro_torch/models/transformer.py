@@ -8,6 +8,7 @@ RG-LRU blocks (recurrentgemma), SSD blocks (mamba2) and the VLM prefix
     loss(params, batch)                        — training loss (+ MoE aux)
     prefill(params, batch, cache_len)          — prompt forward + dense cache
     init_cache(cfg, batch, cache_len)          — dense decode cache
+    cache_specs(cfg, batch, cache_len, mesh)   — its sharding specs
     decode_step(params, cache, tokens)         — one token, dense cache
     init_paged_cache(..., kv_dtype)            — per-layer page pools
     write_prefill_to_pages(cfg, paged, dense, slot, page_ids)
@@ -346,6 +347,60 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
     return {"slots": [slot(k, n_rep) for k in pat],
             "tail": [slot(k, None) for k in tail_kinds(cfg)],
             "pos": 0}
+
+
+def cache_specs(cfg, batch: int, cache_len: int, mesh,
+                dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Spec tuples (`models.sharding`) for the dense decode cache, in the
+    tree of `init_cache` ("pos" gets the empty spec). The reference's
+    policy: the batch dim over "data"; KV tensors (..., B, T, K, h) also
+    shard their KV heads over "model" when they divide, else the sequence
+    (context parallelism: decode all-reduces only per-row softmax
+    statistics), else head_dim, else the sequence over "data" when the
+    batch could not take it; recurrent states shard their trailing width
+    over "model". `mesh` is anything `sharding.mesh_axes` reads."""
+    from repro_torch.models.sharding import mesh_axes
+    sizes = mesh_axes(mesh)
+    shapes = init_cache(cfg, batch, cache_len, dtype, device="meta")
+
+    def ax_ok(name, d):
+        return name in sizes and d % sizes[name] == 0
+
+    def spec_of(leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return ()
+        shp = tuple(leaf.shape)
+        spec = [None] * len(shp)
+        # the batch dim: the first dim equal to `batch` (after the stack)
+        bi = None
+        for i in range(len(shp)):
+            if shp[i] == batch and (i == 0 or shp[0] != batch):
+                bi = i
+                break
+        if shp and shp[0] == batch:
+            bi = 0
+        if bi is not None and ax_ok("data", shp[bi]):
+            spec[bi] = "data"
+        if len(shp) >= 2 and leaf.dtype != torch.int32:
+            if len(shp) >= 4 and shp[-2] == cfg.num_kv_heads \
+                    and shp[-1] == cfg.head_dim:
+                if ax_ok("model", shp[-2]):
+                    spec[-2] = "model"
+                elif ax_ok("model", shp[-3]):
+                    spec[-3] = "model"     # sequence (context parallel)
+                elif ax_ok("model", shp[-1]):
+                    spec[-1] = "model"
+                elif spec[bi] != "data" and ax_ok("data", shp[-3]):
+                    spec[-3] = "data"      # seq when the batch can't shard
+            elif ax_ok("model", shp[-1]):
+                spec[-1] = "model"         # recurrent width
+        return tuple(spec)
+
+    return {"slots": [{k: spec_of(v) for k, v in e.items()}
+                      for e in shapes["slots"]],
+            "tail": [{k: spec_of(v) for k, v in e.items()}
+                     for e in shapes["tail"]],
+            "pos": spec_of(shapes["pos"])}
 
 
 def init_paged_cache(cfg, num_slots: int, num_pages: int, page_size: int,

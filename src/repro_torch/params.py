@@ -12,6 +12,8 @@ stacked block dict over the encoder layers, "enc_norm", "decoder": a
 stacked dict over the decoder layers with "self_attn" and "cross_attn",
 "final_norm"}.
 
+  * `param_axes` names each leaf's logical axes (the reference's
+    `PTpl.axes`), for the sharding rules of `models.sharding`.
   * `from_jax_params` carries weights across from the reference: its
     `DecoderLM.init` params, brought to numpy (`jax.device_get`), become
     tensors on a device, key for key.
@@ -35,66 +37,89 @@ Spec = Tuple[Tuple[int, ...], str]
 # float32 bytes above which `init_params` draws a stacked leaf slice by slice
 _DRAW_LIMIT = 2 << 30
 
+# The private functions below make leaves (shape, init, axes): the
+# reference's `PTpl` without its scale and dtype. `axes` names each dim's
+# logical axis (`models.sharding` maps them onto a mesh). `param_specs`
+# keeps (shape, init), `param_axes` the axes.
 
-def _norm(cfg) -> Dict[str, Spec]:
-    d = cfg.d_model
+
+def _norm(cfg) -> Dict[str, tuple]:
+    d, e = cfg.d_model, ("embed",)
     if cfg.norm == "layernorm":
-        return {"scale": ((d,), "ones"), "bias": ((d,), "zeros")}
-    return {"scale": ((d,), "zeros")}       # rmsnorm stores (gain - 1)
+        return {"scale": ((d,), "ones", e), "bias": ((d,), "zeros", e)}
+    return {"scale": ((d,), "zeros", e)}    # rmsnorm stores (gain - 1)
 
 
-def _attn(cfg, cross: bool = False) -> Dict[str, Spec]:
+def _attn(cfg, cross: bool = False) -> Dict[str, tuple]:
     D, Q, KV = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    t = {"wq": ((D, Q), "normal"), "wk": ((D, KV), "normal"),
-         "wv": ((D, KV), "normal"), "wo": ((Q, D), "normal")}
+    into, out = ("embed", "qkv_out"), ("qkv_out", "embed")
+    t = {"wq": ((D, Q), "normal", into), "wk": ((D, KV), "normal", into),
+         "wv": ((D, KV), "normal", into), "wo": ((Q, D), "normal", out)}
     if cfg.attn_bias and not cross:
-        t.update(bq=((Q,), "zeros"), bk=((KV,), "zeros"),
-                 bv=((KV,), "zeros"))
+        b = ("qkv_out",)
+        t.update(bq=((Q,), "zeros", b), bk=((KV,), "zeros", b),
+                 bv=((KV,), "zeros", b))
     return t
 
 
-def _ffn(cfg) -> Dict[str, Spec]:
+def _gated(D: int, F: int) -> Dict[str, tuple]:
+    return {"w_gate": ((D, F), "normal", ("embed", "mlp")),
+            "w_up": ((D, F), "normal", ("embed", "mlp")),
+            "w_down": ((F, D), "normal", ("mlp", "embed"))}
+
+
+def _ffn(cfg) -> Dict[str, tuple]:
     D, F = cfg.d_model, cfg.d_ff
     if cfg.ffn_kind in ("swiglu", "geglu"):
-        return {"w_gate": ((D, F), "normal"), "w_up": ((D, F), "normal"),
-                "w_down": ((F, D), "normal")}
-    return {"w_up": ((D, F), "normal"), "b_up": ((F,), "zeros"),
-            "w_down": ((F, D), "normal"), "b_down": ((D,), "zeros")}
+        return _gated(D, F)
+    return {"w_up": ((D, F), "normal", ("embed", "mlp")),
+            "b_up": ((F,), "zeros", ("mlp",)),
+            "w_down": ((F, D), "normal", ("mlp", "embed")),
+            "b_down": ((D,), "zeros", ("embed",))}
 
 
 def _moe(cfg) -> Dict[str, Any]:
     m = cfg.moe
     D, F, E = cfg.d_model, m.d_ff_expert, m.num_experts
-    t = {"router": ((D, E), "normal"), "w_gate": ((E, D, F), "normal"),
-         "w_up": ((E, D, F), "normal"), "w_down": ((E, F, D), "normal")}
+    t = {"router": ((D, E), "normal", ("embed", "experts")),
+         "w_gate": ((E, D, F), "normal", ("experts", "embed", "mlp")),
+         "w_up": ((E, D, F), "normal", ("experts", "embed", "mlp")),
+         "w_down": ((E, F, D), "normal", ("experts", "mlp", "embed"))}
     if m.shared_expert:
-        t["shared"] = {"w_gate": ((D, F), "normal"),
-                       "w_up": ((D, F), "normal"),
-                       "w_down": ((F, D), "normal")}
+        t["shared"] = _gated(D, F)
     return t
 
 
-def _rglru(cfg) -> Dict[str, Spec]:
+def _rglru(cfg) -> Dict[str, tuple]:
     g = cfg.rglru
     D = cfg.d_model
     w = g.lru_width(D)
-    return {"w_branch": ((D, w), "normal"), "w_rec": ((D, w), "normal"),
-            "conv": ((g.conv_width, w), "normal"),
-            "w_a": ((w, w), "normal"), "w_i": ((w, w), "normal"),
-            "lam": ((w,), "ones"), "wo": ((w, D), "normal")}
+    return {"w_branch": ((D, w), "normal", ("embed", "lru")),
+            "w_rec": ((D, w), "normal", ("embed", "lru")),
+            "conv": ((g.conv_width, w), "normal", ("conv", "lru")),
+            "w_a": ((w, w), "normal", ("lru", "lru")),
+            "w_i": ((w, w), "normal", ("lru", "lru")),
+            "lam": ((w,), "ones", ("lru",)),
+            "wo": ((w, D), "normal", ("lru", "embed"))}
 
 
-def _ssm(cfg) -> Dict[str, Spec]:
+def _ssm(cfg) -> Dict[str, tuple]:
     s = cfg.ssm
     D = cfg.d_model
     di, N, H, cw = s.d_inner(D), s.state_dim, s.num_heads(D), s.conv_width
-    return {"wz": ((D, di), "normal"), "wx": ((D, di), "normal"),
-            "wB": ((D, N), "normal"), "wC": ((D, N), "normal"),
-            "wdt": ((D, H), "normal"), "dt_bias": ((H,), "zeros"),
-            "A_log": ((H,), "ones"), "D": ((H,), "ones"),
-            "conv_x": ((cw, di), "normal"), "conv_B": ((cw, N), "normal"),
-            "conv_C": ((cw, N), "normal"), "norm": ((di,), "zeros"),
-            "wo": ((di, D), "normal")}
+    inner, state = ("embed", "ssm_inner"), ("embed", "state")
+    return {"wz": ((D, di), "normal", inner),
+            "wx": ((D, di), "normal", inner),
+            "wB": ((D, N), "normal", state), "wC": ((D, N), "normal", state),
+            "wdt": ((D, H), "normal", ("embed", "heads")),
+            "dt_bias": ((H,), "zeros", ("heads",)),
+            "A_log": ((H,), "ones", ("heads",)),
+            "D": ((H,), "ones", ("heads",)),
+            "conv_x": ((cw, di), "normal", ("conv", "ssm_inner")),
+            "conv_B": ((cw, N), "normal", ("conv", "state")),
+            "conv_C": ((cw, N), "normal", ("conv", "state")),
+            "norm": ((di,), "zeros", ("ssm_inner",)),
+            "wo": ((di, D), "normal", ("ssm_inner", "embed"))}
 
 
 def _block(cfg, kind: str) -> Dict[str, Any]:
@@ -112,10 +137,24 @@ def _block(cfg, kind: str) -> Dict[str, Any]:
 
 
 def _stacked(tree, n: int):
+    """A leading stacking dim of size `n` on every leaf, named "layers"."""
     if isinstance(tree, dict):
         return {k: _stacked(v, n) for k, v in tree.items()}
-    shape, init = tree
-    return ((n,) + shape, init)
+    shape, init, axes = tree
+    return ((n,) + shape, init, ("layers",) + axes)
+
+
+def _select(tree, fn):
+    """`fn` of every leaf of such a tree (dicts and lists kept)."""
+    if isinstance(tree, dict):
+        return {k: _select(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_select(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _specs(tree):
+    return _select(tree, lambda leaf: leaf[:2])
 
 
 def require_decoder(cfg) -> None:
@@ -130,49 +169,59 @@ def require_decoder(cfg) -> None:
             "in the reference")
 
 
-def _embed(cfg) -> Dict[str, Spec]:
-    embed = {"tok": ((cfg.padded_vocab, cfg.d_model), "embed")}
+def _embed(cfg) -> Dict[str, tuple]:
+    D, V = cfg.d_model, cfg.padded_vocab
+    embed = {"tok": ((V, D), "embed", ("vocab", "embed"))}
     if cfg.pos_emb == "learned":
-        embed["pos"] = ((min(cfg.max_seq_len, 32768), cfg.d_model), "embed")
+        embed["pos"] = ((min(cfg.max_seq_len, 32768), D), "embed",
+                        ("seq_table", "embed"))
     if not cfg.tie_embeddings:
-        embed["head"] = ((cfg.d_model, cfg.padded_vocab), "normal")
+        embed["head"] = ((D, V), "normal", ("embed", "vocab"))
     return embed
+
+
+def _enc_block(cfg) -> Dict[str, Any]:
+    return {"norm1": _norm(cfg), "attn": _attn(cfg), "norm2": _norm(cfg),
+            "ffn": _ffn(cfg)}
+
+
+def _dec_block(cfg) -> Dict[str, Any]:
+    return {"norm1": _norm(cfg), "self_attn": _attn(cfg),
+            "norm_c": _norm(cfg), "cross_attn": _attn(cfg, cross=True),
+            "norm2": _norm(cfg), "ffn": _ffn(cfg)}
+
+
+def _encdec(cfg) -> Dict[str, Any]:
+    return {"embed": _embed(cfg),
+            "enc_pos": ((min(cfg.max_seq_len, 32768), cfg.d_model), "embed",
+                        ("seq_table", "embed")),
+            "encoder": _stacked(_enc_block(cfg), cfg.encoder_layers),
+            "enc_norm": _norm(cfg),
+            "decoder": _stacked(_dec_block(cfg), cfg.num_layers),
+            "final_norm": _norm(cfg)}
 
 
 def enc_block_template(cfg) -> Dict[str, Any]:
     """One encoder block (the reference's `enc_block_template`)."""
-    return {"norm1": _norm(cfg), "attn": _attn(cfg), "norm2": _norm(cfg),
-            "ffn": _ffn(cfg)}
+    return _specs(_enc_block(cfg))
 
 
 def dec_block_template(cfg) -> Dict[str, Any]:
     """One decoder block (the reference's `dec_block_template`): self
     attention, cross attention without bias, FFN."""
-    return {"norm1": _norm(cfg), "self_attn": _attn(cfg),
-            "norm_c": _norm(cfg), "cross_attn": _attn(cfg, cross=True),
-            "norm2": _norm(cfg), "ffn": _ffn(cfg)}
+    return _specs(_dec_block(cfg))
 
 
 def encdec_template(cfg) -> Dict[str, Any]:
     """The reference's `encdec_template`: the learned encoder positions, the
     encoder blocks stacked over `encoder_layers`, the decoder blocks
     stacked over `num_layers`."""
-    return {"embed": _embed(cfg),
-            "enc_pos": ((min(cfg.max_seq_len, 32768), cfg.d_model), "embed"),
-            "encoder": _stacked(enc_block_template(cfg), cfg.encoder_layers),
-            "enc_norm": _norm(cfg),
-            "decoder": _stacked(dec_block_template(cfg), cfg.num_layers),
-            "final_norm": _norm(cfg)}
+    return _specs(_encdec(cfg))
 
 
-def param_specs(cfg) -> Dict[str, Any]:
-    """The tree of (shape, init) leaves the reference's template describes.
-    Decoder-only configs (`lm_template`): one stacked dict per pattern slot
-    (leading axis n_rep = num_layers // len(pattern)), the unstacked tail
-    blocks, and the projector of configs with a frontend. Encoder-decoder
-    configs: `encdec_template`."""
+def _template(cfg) -> Dict[str, Any]:
     if cfg.is_encdec:
-        return encdec_template(cfg)
+        return _encdec(cfg)
     pat = cfg.block_pattern
     n_rep = cfg.num_layers // len(pat)
     t = {"embed": _embed(cfg),
@@ -181,22 +230,43 @@ def param_specs(cfg) -> Dict[str, Any]:
                   for k in cfg.layer_kinds()[n_rep * len(pat):]],
          "final_norm": _norm(cfg)}
     if cfg.frontend is not None:
-        t["projector"] = {"w": ((cfg.d_model, cfg.d_model), "normal"),
-                          "b": ((cfg.d_model,), "zeros")}
+        t["projector"] = {
+            "w": ((cfg.d_model, cfg.d_model), "normal", ("embed", "mlp")),
+            "b": ((cfg.d_model,), "zeros", ("embed",))}
     return t
 
 
-def _map(spec, tree, fn, path=""):
+def param_specs(cfg) -> Dict[str, Any]:
+    """The tree of (shape, init) leaves the reference's template describes.
+    Decoder-only configs (`lm_template`): one stacked dict per pattern slot
+    (leading axis n_rep = num_layers // len(pattern)), the unstacked tail
+    blocks, and the projector of configs with a frontend. Encoder-decoder
+    configs: `encdec_template`."""
+    return _specs(_template(cfg))
+
+
+def param_axes(cfg) -> Dict[str, Any]:
+    """The logical axis names of every leaf of `param_specs(cfg)`: the same
+    tree with a tuple of names per leaf, one per dim (the reference's
+    `PTpl.axes`; stacked leaves lead with "layers")."""
+    return _select(_template(cfg), lambda leaf: leaf[2])
+
+
+def map_tree(spec, tree, fn, path=""):
+    """`fn(spec_leaf, tree_leaf, path)` over two trees of one structure
+    (dicts and lists; anything else is a leaf), walked by `spec`; raises
+    where `tree` has other keys or lengths."""
     if isinstance(spec, dict):
         if not isinstance(tree, dict) or set(tree) != set(spec):
             raise ValueError(f"param tree mismatch at {path or '/'}: "
                              f"expected keys {sorted(spec)}")
-        return {k: _map(spec[k], tree[k], fn, f"{path}/{k}") for k in spec}
+        return {k: map_tree(spec[k], tree[k], fn, f"{path}/{k}")
+                for k in spec}
     if isinstance(spec, list):
         if not isinstance(tree, (list, tuple)) or len(tree) != len(spec):
             raise ValueError(f"param tree mismatch at {path}: expected a "
                              f"list of {len(spec)}")
-        return [_map(s, t, fn, f"{path}/{i}")
+        return [map_tree(s, t, fn, f"{path}/{i}")
                 for i, (s, t) in enumerate(zip(spec, tree))]
     return fn(spec, tree, path)
 
@@ -215,7 +285,7 @@ def from_jax_params(tree, cfg, device="cuda",
         t = torch.tensor(arr)
         return t.to(device=dev, dtype=dtype or t.dtype)
 
-    return _map(param_specs(cfg), tree, leaf)
+    return map_tree(param_specs(cfg), tree, leaf)
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda",
@@ -247,4 +317,4 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
                         device=dev)
         return (x * std).to(dtype)
 
-    return _map(specs, specs, leaf)
+    return map_tree(specs, specs, leaf)

@@ -4,7 +4,9 @@ imports and runs a CPU prefill + paged decode step, a Stage-I decode
 horizon swept in Stage II, a prefix-cached, chunked serve of shared-prefix
 traffic with telemetry and an energy meter, a pruned, metered traffic
 campaign, one reduced train step and an encoder-decoder served by
-`BatchedServer` with its trace swept, with JAX made unimportable."""
+`BatchedServer` with its trace swept, with JAX made unimportable; the
+dry run's modules (mesh, sharding, roofline, report) import without
+touching `os.environ` or the process-group state."""
 import ast
 import os
 import subprocess
@@ -122,5 +124,34 @@ def test_port_runs_with_jax_unimportable():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", SCRIPT], env=env, cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+MESH_MODULES = """
+import os, sys
+sys.modules["jax"] = None
+env = dict(os.environ)
+import torch.distributed as dist
+import repro_torch.launch.dryrun, repro_torch.launch.mesh
+import repro_torch.launch.roofline, repro_torch.launch.report
+import repro_torch.models.sharding, repro_torch.models.meshctx
+from repro_torch.models import batch_struct, cache_struct, cache_specs
+from repro_torch.params import param_axes
+assert dict(os.environ) == env
+assert not dist.is_initialized()
+assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+               for k, v in sys.modules.items() if v is not None)
+print("ok")
+"""
+
+
+def test_mesh_modules_import_without_process_state():
+    """The dry run's modules import without JAX and leave `os.environ` and
+    the process-group state as they found them (the reference's dry run
+    writes XLA_FLAGS at import)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", MESH_MODULES], env=env,
+                       cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
