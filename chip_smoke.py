@@ -305,7 +305,9 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
 def device_busy_ms(fn):
     """Milliseconds in which the card ran work during one call of `fn`:
     the union of torch.profiler's device events (kernels, copies), overlaps
-    merged. None where the profiler records no device event."""
+    merged. User ranges (`record_function`, the program's host spans) are
+    left out: their device-side copies span the range, not work. None
+    where the profiler records no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -314,7 +316,8 @@ def device_busy_ms(fn):
         fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     if not spans:
         return None
     busy, end = 0.0, float("-inf")

@@ -43,6 +43,11 @@ Unlike the reference's immutable arrays, caches are updated in place:
 `decode_step_paged`, `verify_step_paged` and `decode_step` write into the
 pools / dense caches / recurrent states and the position, table and
 liveness tensors they are given.
+
+While a torch profiler runs, `prefill` and `prefill_shared`
+(`model.prefill`), `decode_step_paged` (`model.decode_step`) and the
+attention and FFN halves of their blocks (`model.attn`, `model.ffn`)
+record host spans (`obs.host_spans`).
 """
 from __future__ import annotations
 
@@ -76,6 +81,7 @@ from repro_torch.models.rglru import (apply_rglru, apply_rglru_decode,
                                       init_rglru_cache, rglru_prefill)
 from repro_torch.models.ssm import (apply_ssm, apply_ssm_decode,
                                     init_ssm_cache, ssm_prefill)
+from repro_torch.obs.host_spans import host_span
 from repro_torch.params import require_decoder
 
 # Page 0 is the null page: retired/inactive slots point their whole table at
@@ -157,8 +163,10 @@ def _block_prefill(cfg, kind: str, p: dict, x: torch.Tensor,
                    positions: torch.Tensor):
     """One attention block over the whole prompt; returns (x_out, (k, v))
     with k, v (B, S, K, h) post-RoPE."""
-    x, kv = _attend(cfg, kind, p, x, positions)
-    return _ffn_residual(cfg, p, x), kv
+    with host_span("model.attn"):
+        x, kv = _attend(cfg, kind, p, x, positions)
+    with host_span("model.ffn"):
+        return _ffn_residual(cfg, p, x), kv
 
 
 def _block_train(cfg, kind: str, p: dict, x: torch.Tensor,
@@ -208,6 +216,17 @@ def _block_decode_paged(cfg, p: dict, x: torch.Tensor, pools: dict,
     """Paged decode block. x: (B, 1, D); pools: this layer's "kp"/"vp"
     (N, K, ps, h), plus "ks"/"vs" (N, K, ps) scales for int8 pages, written
     in place; pos: (B,) true per-slot positions."""
+    with host_span("model.attn"):
+        x = _attend_decode_paged(cfg, p, x, pools, pos, page_table)
+    with host_span("model.ffn"):
+        return _ffn_residual(cfg, p, x)
+
+
+def _attend_decode_paged(cfg, p: dict, x: torch.Tensor, pools: dict,
+                         pos: torch.Tensor,
+                         page_table: torch.Tensor) -> torch.Tensor:
+    """x + attention(norm1(x)) of a paged decode block, appending each
+    slot's K/V row to its page."""
     B = x.shape[0]
     y = apply_norm(cfg, p["norm1"], x)
     q, k, v = project_qkv(cfg, p["attn"], y, y)
@@ -237,8 +256,7 @@ def _block_decode_paged(cfg, p: dict, x: torch.Tensor, pools: dict,
         kp[pidx, :, off] = _pool_cast(k[:, 0], kp.dtype)
         vp[pidx, :, off] = _pool_cast(v[:, 0], vp.dtype)
         o = paged_gqa_decode(q[:, 0], kp, vp, page_table, pos + 1)
-    x = x + o.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
-    return _ffn_residual(cfg, p, x)
+    return x + o.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
 
 
 def _block_verify_paged(cfg, p: dict, x: torch.Tensor, pools: dict,
@@ -746,32 +764,35 @@ class DecoderLM:
         rows past S are zeros, a ring holds the last T positions at slots
         (S - T + i) % T, recurrent layers their final state, "pos" the
         prompt length)."""
-        cfg = self.cfg
-        x, positions = self._embed_inputs(params, batch)
-        B, S, _ = x.shape
-        if cache_len < S:
-            raise ValueError(f"cache_len {cache_len} < prompt length {S}")
-        cache = init_cache(cfg, B, cache_len, self.compute_dtype,
-                           self.device)
-        for kind, p, c in stack_layers(cfg, params, cache):
-            if kind in ATTENTION_KINDS:
-                x, (k, v) = _block_prefill(cfg, kind, p, x, positions)
-                T = c["k"].shape[1]
-                if kind == "full" or S <= T:
-                    c["k"][:, :S] = k.to(c["k"].dtype)
-                    c["v"][:, :S] = v.to(c["v"].dtype)
-                else:        # ring: the last T positions at (S - T + i) % T
-                    idx = (S - T + torch.arange(T, device=self.device)) % T
-                    c["k"][:, idx] = k[:, -T:].to(c["k"].dtype)
-                    c["v"][:, idx] = v[:, -T:].to(c["v"].dtype)
-            else:
-                x, final = _recurrent_prefill(cfg, kind, p, x)
-                for key, val in final.items():
-                    c[key].copy_(val)
-        cache["pos"] = S
-        x = apply_norm(cfg, params["final_norm"], x)
-        logits = lm_logits(cfg, params["embed"], x[:, -1:, :])
-        return logits, cache
+        with host_span("model.prefill"):
+            cfg = self.cfg
+            x, positions = self._embed_inputs(params, batch)
+            B, S, _ = x.shape
+            if cache_len < S:
+                raise ValueError(f"cache_len {cache_len} < prompt length "
+                                 f"{S}")
+            cache = init_cache(cfg, B, cache_len, self.compute_dtype,
+                               self.device)
+            for kind, p, c in stack_layers(cfg, params, cache):
+                if kind in ATTENTION_KINDS:
+                    x, (k, v) = _block_prefill(cfg, kind, p, x, positions)
+                    T = c["k"].shape[1]
+                    if kind == "full" or S <= T:
+                        c["k"][:, :S] = k.to(c["k"].dtype)
+                        c["v"][:, :S] = v.to(c["v"].dtype)
+                    else:  # ring: the last T positions at (S - T + i) % T
+                        idx = (S - T + torch.arange(T, device=self.device)
+                               ) % T
+                        c["k"][:, idx] = k[:, -T:].to(c["k"].dtype)
+                        c["v"][:, idx] = v[:, -T:].to(c["v"].dtype)
+                else:
+                    x, final = _recurrent_prefill(cfg, kind, p, x)
+                    for key, val in final.items():
+                        c[key].copy_(val)
+            cache["pos"] = S
+            x = apply_norm(cfg, params["final_norm"], x)
+            logits = lm_logits(cfg, params["embed"], x[:, -1:, :])
+            return logits, cache
 
     def prefill_shared(self, params: dict, batch: dict, prefix: dict,
                        pad_to: Optional[int] = None):
@@ -787,28 +808,30 @@ class DecoderLM:
         `write_shared_prefill_to_pages`). With an empty prefix (m == 0)
         this is a full prefill without the dense cache's padding. `pad_to`:
         see `_block_shared_prefill`. Pure full-attention stacks only."""
-        cfg = self.cfg
-        _require_pure_full(cfg, "prefill_shared")
-        if "prefix_embeds" in batch:
-            raise NotImplementedError("prefix caching is token-keyed; "
-                                      "frontend prefix embeds unsupported")
-        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        B, S = tokens.shape
-        m = prefix["slots"][0]["k"].shape[2]
-        positions = m + torch.arange(S, device=self.device)
-        x = embed_tokens(cfg, params["embed"], tokens,
-                         positions[None].expand(B, S), self.compute_dtype)
-        pk, pv = prefix["slots"][0]["k"], prefix["slots"][0]["v"]
-        ks, vs = [], []
-        for i, p in enumerate(self._blocks(params)):
-            x, (k, v) = _block_shared_prefill(cfg, p, x, positions, pk[i],
-                                              pv[i], pad_to)
-            ks.append(k)
-            vs.append(v)
-        x = apply_norm(cfg, params["final_norm"], x)
-        logits = lm_logits(cfg, params["embed"], x[:, -1:, :])
-        return logits, {"slots": [{"k": torch.stack(ks),
-                                   "v": torch.stack(vs)}], "tail": []}
+        with host_span("model.prefill"):
+            cfg = self.cfg
+            _require_pure_full(cfg, "prefill_shared")
+            if "prefix_embeds" in batch:
+                raise NotImplementedError("prefix caching is token-keyed; "
+                                          "frontend prefix embeds unsupported")
+            tokens = torch.as_tensor(batch["tokens"],
+                                     device=self.device).long()
+            B, S = tokens.shape
+            m = prefix["slots"][0]["k"].shape[2]
+            positions = m + torch.arange(S, device=self.device)
+            x = embed_tokens(cfg, params["embed"], tokens,
+                             positions[None].expand(B, S), self.compute_dtype)
+            pk, pv = prefix["slots"][0]["k"], prefix["slots"][0]["v"]
+            ks, vs = [], []
+            for i, p in enumerate(self._blocks(params)):
+                x, (k, v) = _block_shared_prefill(cfg, p, x, positions, pk[i],
+                                                  pv[i], pad_to)
+                ks.append(k)
+                vs.append(v)
+            x = apply_norm(cfg, params["final_norm"], x)
+            logits = lm_logits(cfg, params["embed"], x[:, -1:, :])
+            return logits, {"slots": [{"k": torch.stack(ks),
+                                       "v": torch.stack(vs)}], "tail": []}
 
     def decode_step_paged(self, params: dict, cache: dict,
                           tokens: torch.Tensor):
@@ -818,19 +841,20 @@ class DecoderLM:
         through its page-table row, and attends over exactly `pos + 1`
         tokens; recurrent blocks step every slot's dense state. Inactive
         slots run masked (null page) and their `pos` does not advance."""
-        cfg = self.cfg
-        pos = cache["pos"]
-        page_table = cache["page_table"]
-        x = embed_tokens(cfg, params["embed"], tokens.long(), pos[:, None],
-                         self.compute_dtype)
-        for kind, p, c in stack_layers(cfg, params, cache):
-            if kind == "full":
-                x = _block_decode_paged(cfg, p, x, c, pos, page_table)
-            else:
-                x = _recurrent_decode(cfg, kind, p, x, c)
-        cache["pos"] = pos + cache["active"].to(pos.dtype)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return lm_logits(cfg, params["embed"], x), cache
+        with host_span("model.decode_step"):
+            cfg = self.cfg
+            pos = cache["pos"]
+            page_table = cache["page_table"]
+            x = embed_tokens(cfg, params["embed"], tokens.long(), pos[:, None],
+                             self.compute_dtype)
+            for kind, p, c in stack_layers(cfg, params, cache):
+                if kind == "full":
+                    x = _block_decode_paged(cfg, p, x, c, pos, page_table)
+                else:
+                    x = _recurrent_decode(cfg, kind, p, x, c)
+            cache["pos"] = pos + cache["active"].to(pos.dtype)
+            x = apply_norm(cfg, params["final_norm"], x)
+            return lm_logits(cfg, params["embed"], x), cache
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
         """tokens: (B, 1) against a dense cache (`init_cache`, or the one

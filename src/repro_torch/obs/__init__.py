@@ -1,9 +1,12 @@
 """Telemetry of the port: metrics registry, spans, SLOs, energy meter,
-Perfetto export (copies of the reference package's `repro/obs` modules)."""
+Perfetto export (copies of the reference package's `repro/obs` modules),
+and the port's own host spans (`host_spans`: wall-clock ranges around the
+serving layers while a torch profiler runs)."""
 from repro_torch.obs.energy import BankEnergyMeter, MeterReport
 from repro_torch.obs.perfetto import (bank_state_events, chrome_trace_events,
                                       counter_integral, energy_counter_total,
                                       export_chrome_trace)
+from repro_torch.obs.host_spans import HostSpan, host_registry, host_span
 from repro_torch.obs.slo import (RequestTimeline, SLOSummary, SLOTracker,
                                  attach_energy_percentiles,
                                  percentile_summary, summarize_histograms)
@@ -21,4 +24,5 @@ __all__ = [
     "chrome_trace_events", "counter_integral", "export_chrome_trace",
     "BankEnergyMeter", "MeterReport", "attach_energy_percentiles",
     "bank_state_events", "energy_counter_total",
+    "HostSpan", "host_registry", "host_span",
 ]

@@ -22,6 +22,10 @@ priority admission with preemption, `on_long_prompt`, and the
 instrumentation: `telemetry=` (the `serve.paged.*` counters and gauges,
 spans and per-request SLO timelines on the logical clock, `slo_summary()`)
 and `meter=` (a streaming `obs.energy.BankEnergyMeter` fed by the ledger).
+While a torch profiler runs, `obs.host_spans` times the host's side on
+the wall clock: each admission, each decode chunk, the page writes, and
+the host's reads of device data (`paged.sync`), where it waits on the
+card.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from repro_torch.models.transformer import (
     _require_pure_full, copy_pages, gather_prefix_pages, init_paged_cache,
     prefix_tail_rows, self_spec_draft, write_prefill_to_pages,
     write_shared_prefill_to_pages)
+from repro_torch.obs.host_spans import host_span
 from repro_torch.obs.slo import (RequestTimeline, SLOSummary, SLOTracker,
                                  attach_energy_percentiles)
 from repro_torch.obs.telemetry import noop_registry
@@ -697,6 +702,10 @@ class PagedContinuousBatcher:
                                device=self.device)
 
     def _admit(self, done: List[Request]) -> None:
+        with host_span("paged.admit"):
+            self._admit_queue(done)
+
+    def _admit_queue(self, done: List[Request]) -> None:
         while self.queue:
             i = next((k for k, s in enumerate(self.slots) if s is None), None)
             if i is None:
@@ -729,7 +738,8 @@ class PagedContinuousBatcher:
             logits, dense = self.model.prefill(
                 self.params, {"tokens": self._tokens(req.tokens)},
                 npg * self.page_size)
-            tok = int(torch.argmax(logits[0, -1]))
+            with host_span("paged.sync", at="first_token"):
+                tok = int(torch.argmax(logits[0, -1]))
             self._sim_t += prompt_len * self.prefill_tok_s
             if self.meter is not None:
                 self.ledger.set_slot_meta(i, req.rid, req.tenant)
@@ -741,8 +751,10 @@ class PagedContinuousBatcher:
             self.stats.admitted_kv_bytes += npg * self.page_bytes
             self.access.add_write("kv", prompt_len * self.row_bytes)
             self._c_alloc.inc(npg)
-            write_prefill_to_pages(self.cfg, self._cache, dense, i,
-                                   torch.as_tensor(pages, dtype=torch.int32))
+            with host_span("paged.page_write"):
+                write_prefill_to_pages(
+                    self.cfg, self._cache, dense, i,
+                    torch.as_tensor(pages, dtype=torch.int32))
             self._commit_admission(i, req, done, tok, logits, prompt_len,
                                    pages, t_pre)
 
@@ -765,8 +777,9 @@ class PagedContinuousBatcher:
                                               self.page_size),
                                  self._sim_t, cause="admission")
         self._reserved[i] -= len(fresh)
-        write_shared_prefill_to_pages(self.cfg, self._cache, suffix, head, i,
-                                      held, fresh)
+        with host_span("paged.page_write"):
+            write_shared_prefill_to_pages(self.cfg, self._cache, suffix, head,
+                                          i, held, fresh)
         return logits, len(fresh)
 
     def _count_slice(self, take: int, new_n: int) -> None:
@@ -818,9 +831,10 @@ class PagedContinuousBatcher:
                     self.ledger.set_slot_meta(i, req.rid, req.tenant)
                 pages = self.ledger.admit(i, new_n, self._sim_t)
                 self._reserved[i] = worst - new_n
-                write_prefill_to_pages(self.cfg, self._cache, dense, i,
-                                       torch.as_tensor(pages,
-                                                       dtype=torch.int32))
+                with host_span("paged.page_write"):
+                    write_prefill_to_pages(
+                        self.cfg, self._cache, dense, i,
+                        torch.as_tensor(pages, dtype=torch.int32))
             else:
                 logits, new_n = self._slice_prefill(
                     i, prompt[pos:pos + take], pos)
@@ -830,7 +844,8 @@ class PagedContinuousBatcher:
             if pos < S:
                 # let the active slots stream tokens before the next slice
                 self._decode_chunk(done)
-        tok = int(torch.argmax(logits[0, -1]))
+        with host_span("paged.sync", at="first_token"):
+            tok = int(torch.argmax(logits[0, -1]))
         self._commit_admission(i, req, done, tok, logits, S,
                                self.ledger.slot_pages[i], t_pre)
 
@@ -913,8 +928,10 @@ class PagedContinuousBatcher:
                 fresh = self.ledger.admit(i, new_n, self._sim_t,
                                           shared=match.pages)
                 self._reserved[i] = demand(match) - new_n
-                write_shared_prefill_to_pages(self.cfg, self._cache, suffix,
-                                              head, i, match.pages, fresh)
+                with host_span("paged.page_write"):
+                    write_shared_prefill_to_pages(self.cfg, self._cache,
+                                                  suffix, head, i,
+                                                  match.pages, fresh)
             else:
                 logits, new_n = self._slice_prefill(
                     i, prompt[pos:pos + take], pos)
@@ -925,7 +942,8 @@ class PagedContinuousBatcher:
             if pos < S:
                 # let the active slots stream tokens before the next slice
                 self._decode_chunk(done)
-        tok = int(torch.argmax(logits[0, -1]))
+        with host_span("paged.sync", at="first_token"):
+            tok = int(torch.argmax(logits[0, -1]))
         if m:
             self.stats.prefix_hits += 1
             self.stats.prefix_tokens_reused += m
@@ -964,7 +982,8 @@ class PagedContinuousBatcher:
         self._table[i, :len(table_pages)] = table_pages
         req.output.append(tok)
         if self.collect_logits:
-            req.logits.append(logits[0, -1].float().cpu().numpy())
+            with host_span("paged.sync", at="first_token"):
+                req.logits.append(logits[0, -1].float().cpu().numpy())
         self.stats.admitted += 1
         self.stats.prefills += 1
         self.stats.peak_active_slots = max(
@@ -1097,6 +1116,10 @@ class PagedContinuousBatcher:
         live = [i for i, s in enumerate(self.slots) if s is not None]
         if not live:
             return
+        with host_span("paged.decode_chunk", slots=len(live)):
+            self._run_chunk(done, live)
+
+    def _run_chunk(self, done: List[Request], live: List[int]) -> None:
         t0 = self._sim_t
         # grow page tables to cover this chunk's worst case
         remaining = np.zeros(self.num_slots, np.int64)
@@ -1115,9 +1138,10 @@ class PagedContinuousBatcher:
         out, step_logits = self._decode_loop(
             torch.as_tensor(self._next_tok[:, None], device=dev),
             self._eos_ids(), torch.as_tensor(remaining, device=dev))
-        out = out.cpu().numpy()
-        if step_logits is not None:
-            step_logits = step_logits.cpu().numpy()
+        with host_span("paged.sync", at="chunk"):
+            out = out.cpu().numpy()
+            if step_logits is not None:
+                step_logits = step_logits.cpu().numpy()
         emitted = out[:self.chunk_steps]
         self._next_tok = out[self.chunk_steps].copy()
         still_active = out[self.chunk_steps + 1].astype(bool)
