@@ -3184,7 +3184,7 @@ def main() -> None:
          wall_s=serve_s, init_s=init_s,
          # wall time of the whole run, admission prefills included
          decode_tokens_per_s=st.decode_steps / serve_s,
-         launches=serve_counts)
+         launches=serve_counts, paged_steps=vars(model.step_counts))
 
     # ---- stage2: pruned sweep on the serve trace (still counted) ----
     bundle = cb.occupancy_bundle()
@@ -3357,6 +3357,7 @@ def main() -> None:
           "spec sweep rows equal the plain-version sweep")
     emit("serve_spec", speculate_k=SPEC_K, draft=scb.draft_model.cfg.name,
          draft_layers=draft_layers, dtype="bfloat16",
+         draft_paged_steps=vars(scb.draft_model.step_counts),
          requests_finished=sst.finished, decode_tokens=sst.decode_steps,
          chunks=sst.chunks, rounds_run=rounds, spec_rounds=sst.spec_rounds,
          drafted_tokens=sst.drafted_tokens,
@@ -3555,9 +3556,12 @@ def serve_full(model, params, prompts, kv_dtype: str,
     every request finished with `new_tokens` in-vocab tokens and that each
     admission ran the prefill kernel once per layer (of the draft too).
     With `clock`, the target's prefills are synchronised and their seconds
-    summed into clock["prefill_s"]. Returns (batcher, finished requests by
-    rid, wall seconds, launch counts)."""
+    summed into clock["prefill_s"]. The paged decode steps (the draft's
+    when speculating) must be CUDA-graph replays after the warm-up, from
+    one capture (`step_counts`, set to 0 before). Returns (batcher,
+    finished requests by rid, wall seconds, launch counts)."""
     from repro_torch.kernels import build
+    from repro_torch.models.paged_graph import StepCounts
     from repro_torch.serve import PagedContinuousBatcher, Request
     cfg = model.cfg
     per_slot = -(-(PROMPT_MAX + new_tokens - 1 + (speculate_k or 0))
@@ -3581,6 +3585,8 @@ def serve_full(model, params, prompts, kv_dtype: str,
             clock["prefill_s"] += time.perf_counter() - t
             return out
         model.prefill = timed_prefill   # this instance only, removed below
+    stepper = model if speculate_k is None else cb.draft_model
+    stepper.step_counts = StepCounts()
     build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3605,7 +3611,20 @@ def serve_full(model, params, prompts, kv_dtype: str,
         layers += cb.draft_model.cfg.num_layers
     check(counts["flash_attention"] == layers * st.prefills,
           f"{tag}: prefill launches == layers x prefills")
+    steps = st.chunks * CHUNK_STEPS if speculate_k is None else (
+        st.chunks * cb.spec_rounds_per_chunk * (speculate_k + 1))
+    check_graphed(tag, stepper.step_counts, steps)
     return cb, done, wall_s, counts
+
+
+def check_graphed(tag: str, counts, steps: int) -> None:
+    """`steps` paged decode steps of one new batcher: the warm-up's eager
+    steps, one capture, every later step a replay."""
+    from repro_torch.models.paged_graph import WARMUP_STEPS, StepCounts
+    eager = min(steps, WARMUP_STEPS)
+    want = StepCounts(captures=int(steps > eager), replays=steps - eager,
+                      eager=eager)
+    check(counts == want, f"{tag}: paged steps {counts} == {want}")
 
 
 def _to(tree, device):

@@ -101,7 +101,8 @@ def library(stem: str) -> ctypes.CDLL:
 class CudaKernel:
     """The ctypes entry point of one kernel, with its launch count.
 
-    `launches` grows by one per successful call and nowhere else."""
+    `launches` grows by one per successful call, and by a CUDA graph's
+    captured calls at each replay (`add_launches`)."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes):
         self.name = name
@@ -139,6 +140,14 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Count `times` runs of launches made outside the wrappers' calls: a
+    CUDA graph's replay runs the launches its capture recorded (and
+    -1 takes back those the capture's calls counted)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += times * n
 
 
 def stream_ptr(tensor) -> ctypes.c_void_p:

@@ -44,15 +44,20 @@ Unlike the reference's immutable arrays, caches are updated in place:
 pools / dense caches / recurrent states and the position, table and
 liveness tensors they are given.
 
+On the card `decode_step_paged` replays one CUDA graph of the step's
+whole body, `paged_decode_step` (`models/paged_graph.py`).
+
 While a torch profiler runs, `prefill` and `prefill_shared`
 (`model.prefill`), `decode_step_paged` (`model.decode_step`) and the
 attention and FFN halves of their blocks (`model.attn`, `model.ffn`)
-record host spans (`obs.host_spans`).
+record host spans (`obs.host_spans`); a graphed decode step's blocks
+record theirs only in the calls that run the body (its warm-up and
+capture), not in replays.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -77,6 +82,7 @@ from repro_torch.models.common import (apply_norm, apply_rope,
                                        embed_tokens, lm_logits)
 from repro_torch.models.ffn import apply_ffn
 from repro_torch.models.moe import apply_moe
+from repro_torch.models.paged_graph import StepCounts, StepGraph, layout_key
 from repro_torch.models.rglru import (apply_rglru, apply_rglru_decode,
                                       init_rglru_cache, rglru_prefill)
 from repro_torch.models.ssm import (apply_ssm, apply_ssm_decode,
@@ -671,6 +677,26 @@ def _block_shared_prefill(cfg, p: dict, x: torch.Tensor,
     return _ffn_residual(cfg, p, x), (k, v)
 
 
+def paged_decode_step(cfg, dtype, params: dict, cache: dict,
+                      tokens: torch.Tensor):
+    """The body of `DecoderLM.decode_step_paged`, the function its CUDA
+    graph captures: every op of one paged decode step in `dtype`, writing
+    the pools and recurrent states in place and reading `cache`'s "pos",
+    "page_table" and "active" without rebinding them. Returns (logits
+    (num_slots, 1, V), pos + active)."""
+    pos = cache["pos"]
+    page_table = cache["page_table"]
+    x = embed_tokens(cfg, params["embed"], tokens.long(), pos[:, None],
+                     dtype)
+    for kind, p, c in stack_layers(cfg, params, cache):
+        if kind == "full":
+            x = _block_decode_paged(cfg, p, x, c, pos, page_table)
+        else:
+            x = _recurrent_decode(cfg, kind, p, x, c)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return (lm_logits(cfg, params["embed"], x),
+            pos + cache["active"].to(pos.dtype))
+
 
 @dataclass
 class DecoderLM:
@@ -683,6 +709,10 @@ class DecoderLM:
     compute_dtype: torch.dtype = torch.bfloat16
     device: Any = "cuda"
     remat: str = "full"
+    step_counts: StepCounts = field(default_factory=StepCounts, init=False,
+                                    repr=False, compare=False)
+    _step_graph: Optional[StepGraph] = field(default=None, init=False,
+                                             repr=False, compare=False)
 
     def __post_init__(self):
         require_decoder(self.cfg)
@@ -840,21 +870,34 @@ class DecoderLM:
         place. Each slot embeds/ropes at its own `pos`, writes its K/V row
         through its page-table row, and attends over exactly `pos + 1`
         tokens; recurrent blocks step every slot's dense state. Inactive
-        slots run masked (null page) and their `pos` does not advance."""
+        slots run masked (null page) and their `pos` does not advance.
+
+        On the card the step replays one CUDA graph of
+        `paged_decode_step` (`decode_step_static`); on the CPU it runs
+        eagerly. `step_counts` counts both."""
         with host_span("model.decode_step"):
-            cfg = self.cfg
-            pos = cache["pos"]
-            page_table = cache["page_table"]
-            x = embed_tokens(cfg, params["embed"], tokens.long(), pos[:, None],
-                             self.compute_dtype)
-            for kind, p, c in stack_layers(cfg, params, cache):
-                if kind == "full":
-                    x = _block_decode_paged(cfg, p, x, c, pos, page_table)
-                else:
-                    x = _recurrent_decode(cfg, kind, p, x, c)
-            cache["pos"] = pos + cache["active"].to(pos.dtype)
-            x = apply_norm(cfg, params["final_norm"], x)
-            return lm_logits(cfg, params["embed"], x), cache
+            if self.device.type == "cuda":
+                return self.decode_step_static(params, cache, tokens)
+            self.step_counts.eager += 1
+            logits, cache["pos"] = paged_decode_step(
+                self.cfg, self.compute_dtype, params, cache, tokens)
+            return logits, cache
+
+    def decode_step_static(self, params: dict, cache: dict,
+                           tokens: torch.Tensor):
+        """`decode_step_paged` through the buffers of a
+        `paged_graph.StepGraph`: a replay of its CUDA graph on the card
+        (after its warm-up calls), the body run eagerly on the same buffers
+        elsewhere. One graph a model, captured again only when the layout
+        of the parameters, pools or inputs changes."""
+        key = layout_key(params, cache, tokens)
+        if self._step_graph is None or self._step_graph.key != key:
+            self._step_graph = StepGraph(key, cache, tokens)
+
+        def step(c, t):
+            return paged_decode_step(self.cfg, self.compute_dtype, params,
+                                     c, t)
+        return self._step_graph(step, cache, tokens, self.step_counts), cache
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
         """tokens: (B, 1) against a dense cache (`init_cache`, or the one

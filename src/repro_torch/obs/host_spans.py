@@ -31,6 +31,8 @@ The spans the serving path opens (one thread drives the card):
     model.prefill       `DecoderLM.prefill` and `prefill_shared`
     model.decode_step   `DecoderLM.decode_step_paged`
     model.attn, model.ffn  the two halves of a prefill or paged decode block
+                        (a decode step replayed from a CUDA graph records
+                        them only in the calls that run its body)
 
 The batcher's `telemetry=` spans stay on its logical clock; these measure
 the host."""
